@@ -12,11 +12,15 @@ crosses without transposes:
 as the flat ``"a/b/0/c"``-keyed dict of the reference's
 ``run/checkpoints.py::save_params_npz``. :func:`numpy_init_params` draws a
 tree with the reference's init distributions from a numpy seed.
+:func:`opt_state_from_numpy` carries optax's Adam state (``count``, ``mu``,
+``nu``) across, so a run of the reference can be continued in the port.
+:func:`tree_leaves` fixes the one leaf order (keys sorted, as JAX orders
+them) that params, gradients and Adam moments share.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -52,6 +56,30 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> List:
+    """Leaves of a params-like tree of dicts and lists, in a fixed order
+    (dict keys sorted, as ``jax.tree.leaves`` orders them)."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """The inverse of :func:`tree_leaves`: ``leaves`` in ``like``'s layout."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(like)
+
+
 def params_from_numpy(tree_or_flat: Mapping, device="cuda") -> Dict:
     """The reference's param tree (nested or flat-keyed, numpy leaves) ->
     the port's param dict of tensors on ``device``, same layout."""
@@ -60,6 +88,29 @@ def params_from_numpy(tree_or_flat: Mapping, device="cuda") -> Dict:
     if any("/" in k for k in tree_or_flat):
         tree = unflatten(tree_or_flat)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def opt_state_from_numpy(adam_state, device="cuda"):
+    """optax's ``ScaleByAdamState`` with numpy leaves (``count``, and
+    ``mu``/``nu`` in the param layout) -> the port's
+    ``train.state.AdamState`` on ``device``. bfloat16 moments
+    (``optimizer_mv_dtype="bfloat16"``) stay bfloat16."""
+    from ikea_recommender_tpu_torch.train.state import AdamState
+
+    dev = resolve_device(device)
+    count = torch.tensor(int(np.asarray(adam_state.count)), dtype=torch.int32, device=dev)
+    return AdamState(
+        count=count,
+        mu=tree_map(lambda a: _tensor(a, dev), adam_state.mu),
+        nu=tree_map(lambda a: _tensor(a, dev), adam_state.nu),
+    )
 
 
 def numpy_init_params(cfg, seed: int) -> Dict:

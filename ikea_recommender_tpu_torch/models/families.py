@@ -1,6 +1,6 @@
 """Model families as head configurations over the shared backbone.
 
-Port of ``ikea_recommender_tpu/models/families.py`` for inference:
+Port of ``ikea_recommender_tpu/models/families.py``:
 
 - ``gru4rec``       -> sup head only
 - ``bidir_gru4rec`` -> sup head on 2H bidirectional features
@@ -16,7 +16,7 @@ selects the scored head uniformly. Params keep the reference's layout
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,9 +25,9 @@ from ikea_recommender_tpu_torch.models.heads import linear_apply, multihead_appl
 
 FAMILIES = ("gru4rec", "bidir_gru4rec", "sqn", "smorl", "sarm")
 
-# Catalog size from which serving scores the head blockwise (the reference's
-# threshold for its fused head kernels, kept so both packages pick the same
-# serving path).
+# Catalog size from which the train step takes the fused CE kernels and
+# serving scores the head blockwise (the reference's threshold, kept so both
+# packages pick the same paths).
 FUSED_CE_MIN_ACTIONS = 8192
 
 
@@ -40,6 +40,12 @@ class ModelConfig:
     # Pad the output head's action dim up to a multiple. Padded logits are
     # masked to -1e9 so softmax / top-k / argmax semantics are untouched.
     action_align: int = 1
+    # Train the supervised CE through the fused kernels (ops/fused_ce.py):
+    # the (B, A) logits are never written to device memory.
+    fused_ce: bool = False
+    # Precision of the fused head products: "high" = bf16x3, "highest" =
+    # fp32, "default" = one bf16 pass (ops/fused_ce.py).
+    head_precision: str = "high"
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -66,6 +72,7 @@ def model_config_from_train(train_cfg, data_cfg, align: int = 1) -> ModelConfig:
         train_pad_embed=train_cfg.train_padding_embed,
         masked_recurrence=train_cfg.use_packed_seq,
         head_layer="first" if train_cfg.compat_first_layer_head else "last",
+        dropout=train_cfg.dropout,
         compute_dtype=train_cfg.compute_dtype,
         vocab_align=align,
     )
@@ -78,14 +85,37 @@ def model_config_from_train(train_cfg, data_cfg, align: int = 1) -> ModelConfig:
         action_dim=data_cfg.num_actions,
         num_q_heads=num_q,
         action_align=align,
+        fused_ce=(
+            train_cfg.fused_ce
+            and data_cfg.num_actions
+            >= (
+                FUSED_CE_MIN_ACTIONS
+                if train_cfg.fused_ce_min_actions is None
+                else train_cfg.fused_ce_min_actions
+            )
+        ),
+        head_precision=train_cfg.head_precision,
     )
 
 
 def apply_features(
-    params: Dict, cfg: ModelConfig, states: torch.Tensor, lengths: torch.Tensor
+    params: Dict,
+    cfg: ModelConfig,
+    states: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    dropout_generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """Backbone features (B, F) — the input every head shares."""
-    return apply_backbone(params["backbone"], cfg.backbone, states, lengths)
+    return apply_backbone(
+        params["backbone"],
+        cfg.backbone,
+        states,
+        lengths,
+        dropout_generator=dropout_generator,
+        deterministic=deterministic,
+    )
 
 
 def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -113,7 +143,13 @@ def canonicalize_qheads(params: Dict, cfg: ModelConfig) -> Dict:
 
 
 def apply_model(
-    params: Dict, cfg: ModelConfig, states: torch.Tensor, lengths: torch.Tensor
+    params: Dict,
+    cfg: ModelConfig,
+    states: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    dropout_generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> Tuple[torch.Tensor, ...]:
     """Forward pass -> tuple of head outputs.
 
@@ -123,7 +159,10 @@ def apply_model(
     sarm:  (head_0, ..., head_4) each (B, A)
     """
     params = canonicalize_qheads(params, cfg)
-    h = apply_features(params, cfg, states, lengths)
+    h = apply_features(
+        params, cfg, states, lengths,
+        dropout_generator=dropout_generator, deterministic=deterministic,
+    )
 
     def mask_pad(logits):
         return mask_pad_logits(cfg, logits)

@@ -2,9 +2,11 @@
 
 Port of ``ikea_recommender_tpu/models/gru.py::gru_layer_apply``. The input
 projection ``x W_i + b_i`` for all timesteps is one fp32 ``torch.matmul``
-outside any kernel; the serial recurrence always runs through
+outside any kernel, as the reference leaves it to XLA; the serial
+recurrence always runs through
 :func:`ikea_recommender_tpu_torch.ops.gru_cuda.gru_scan` (the hand-written
-kernel on the card, its plain twin on the CPU). The reference's
+forward and backward kernels on the card, their plain twins on the CPU), so
+the layer is differentiable in its four params and its input. The reference's
 ``scan_impl`` regime rule picks between XLA's scan and its Pallas kernel;
 the port has one recurrence, so it has no such rule.
 

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels from ``csrc/*.cu`` on first use.
 
 Each source is compiled by ``nvcc`` into its own shared library with a
-plain C interface, loaded with :mod:`ctypes`. Libraries go to ``_build/``
+plain C interface, loaded with :mod:`ctypes`; :func:`build_all` runs one
+``nvcc`` per source, all at once. Libraries go to ``_build/``
 beside the package (listed in ``.gitignore``), named by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is reused.
@@ -51,10 +52,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Optional[str]:
-    """Compile ``csrc/<name>.cu`` unless its library is up to date. Returns
-    the compiler's output (its ``-Xptxas=-v`` register and shared-memory
-    report), or None when nothing was built."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library is up to date;
+    returns (process, temporary output, final output) or None."""
     out = library_path(name)
     if out.exists():
         return None
@@ -62,14 +62,43 @@ def build(name: str) -> Optional[str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> Optional[str]:
+    if started is None:
+        return None
+    proc, tmp, out = started
+    report = proc.communicate()[0]
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"kernel build failed: {name}.cu (nvcc exit {proc.returncode}):\n{proc.stdout}"
+            f"kernel build failed: {name}.cu (nvcc exit {proc.returncode}):\n{report}"
         )
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return proc.stdout
+    return report
+
+
+def build_all(names) -> Dict[str, Optional[str]]:
+    """Compile the named sources, one ``nvcc`` each, all started together.
+    Returns each compiler's output (its ``-Xptxas=-v`` register and
+    shared-memory report), or None for a library that was up to date."""
+    started = {name: _start(name) for name in names}
+    try:
+        return {name: _finish(name, started[name]) for name in names}
+    finally:  # a failed build leaves no compiler running and no temporary
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+                s[1].unlink(missing_ok=True)
+
+
+def build(name: str) -> Optional[str]:
+    """Compile ``csrc/<name>.cu`` unless its library is up to date; see
+    :func:`build_all`."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,7 +14,9 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -59,6 +61,8 @@ def test_importing_the_port_loads_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in sorted(PORT.rglob("*.py"))
     ]
+    for new in ("ops.fused_ce", "train.state", "train.steps"):
+        assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
@@ -74,11 +78,17 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
-    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.convert import (
+        numpy_init_params,
+        opt_state_from_numpy,
+        params_from_numpy,
+    )
     from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
     from ikea_recommender_tpu_torch.models.families import model_config_from_train
     from ikea_recommender_tpu_torch.run import checkpoints, recommend
     from ikea_recommender_tpu_torch.run.serve import Recommender
+    from ikea_recommender_tpu_torch.train.state import make_train_state
+    from ikea_recommender_tpu_torch.train.steps import make_train_step
 
     mc = model_config_from_train(
         TrainConfig(embedding_size=4, hidden_state_size=4), DataConfig(num_items=9)
@@ -100,6 +110,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
         recommend.main(["-f", str(tmp_path / "experiment.yaml"),
                         "--input", str(tmp_path / "in.jsonl")])
     assert Recommender(params, mc, device="cpu").device.type == "cpu"
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_state(params, mc, 0.01)
+    state, opt = make_train_state(params, mc, 0.01, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(mc, opt)
+    adam = SimpleNamespace(count=np.int32(0), mu=np_params, nu=np_params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        opt_state_from_numpy(adam)
+    assert opt_state_from_numpy(adam, "cpu").count.device.type == "cpu"
+    batch = {"state": np.zeros((2, 3), np.int32), "action": np.zeros(2, np.int32),
+             "true_len": np.ones(2, np.int32), "valid": np.ones(2, bool)}
+    _, metrics = make_train_step(mc, opt, device="cpu")(state, batch)
+    assert metrics["sup_loss"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
