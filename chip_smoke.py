@@ -3,19 +3,24 @@
 their plain twins.
 
     python3 chip_smoke.py             # from the repository root, one card
-    python3 chip_smoke.py --profile   # adds where a serving batch's and a
-                                      # train step's time goes
+    python3 chip_smoke.py --profile   # adds where a serving batch's and
+                                      # each train step's time goes
 
 Phases; any failure ends the run with a non-zero exit and no result line:
 1. device: card name and power limit, torch and CUDA versions, TF32 off;
 2. build: every CUDA kernel of the serving and train paths, one ``nvcc``
    per source in ``ikea_recommender_tpu_torch/csrc``, all started together;
 3. kernels: each kernel against its plain twin on the card at the shapes
-   the two paths give it and at longer, wider and padded ones, with the
+   the paths give it and at longer, wider and padded ones, with the
    kernel's time, the twin's, its bound and one PyTorch call's as a
    yardstick: B3 gru_fwd and B4 gru_bwd (the GRU recurrence and its
    adjoint), B1 fused_ce_fwd and B2 fused_ce_bwd (the softmax CE over the
-   catalog and its gradients);
+   catalog and its gradients), B5 fused_argmax and B6 fused_wargmax (the
+   argmax over the catalog of one Q head, and of K = 3 heads' weighted
+   sum: max within 1e-5 of the twin's largest, ids equal wherever the
+   twin's two best differ by more; also "highest", NaN in a padded
+   catalog, one row, and exact ties on both sides of a tile edge and at
+   the last valid column, which the lowest id must win);
 4. serving: gru4rec at the RetailRocket width (catalog 70852, E=H=64,
    T=10, one layer; random weights from a seed) answers 4 batches of 512
    seeded sessions through ``run.recommend.recommend_rows``. The launch
@@ -24,20 +29,31 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    run through the plain recurrence: scores within 1e-5 (plus the
    records' 6-digit rounding), ids wherever adjacent top-k values differ
    by > 1e-5;
-5. train: the gru4rec train step at the same width (batch 256, lr 0.01,
+5. train gru4rec: the train step at the same width (batch 256, lr 0.01,
    fused CE in "high" precision, fp32 Adam; params from a seed, batches as
    bench.py draws them plus one with a padded tail) through
    ``train.steps.make_train_step``: 3 steps held to the same 3 steps on
    CPU copies (where the twins run), then 1 warm-up and 20 timed steps,
    whose launch counters, reset just before, must show B1, B2, B3 and B4
-   once per step.
+   once per step;
+6. train sqn and smorl: the double-Q steps at the same width and settings
+   (``RLStepConfig()``: gamma 0.5, K = 3 heads weighted (1, 1, 1) for
+   smorl; two nets from seeds 0 and 1; smorl's diversity embedding and
+   unpopular mask as bench.py:94-100 draws them): 3 steps with the coins
+   fixed to (0, 1, 1) held to CPU copies (losses, first-step gradients,
+   params over the moved entries, target ids wherever the twin's two best
+   next actions differ by more than 1e-5, and the net a step does not
+   train unchanged bit for bit), then 1 warm-up and 20 timed steps with
+   the coins drawn on the host, whose counters must show per step B1, B2,
+   B5 once and B3 three times (sqn), or B2, B6 once and B3 three times and
+   no B1 (smorl), and B4 once.
    Afterwards neither jax nor the reference package may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
-kernel with its launches on the train run (B3 also on the serving run), its
-error against the twin, its time, the twin's time, its bound and the
-yardstick's time; the last line is
+kernel with its launches on the paths' timed runs (their sum and each
+path's), its error against the twin, its time, the twin's time, its bound
+and the yardstick's time; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -55,13 +71,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
-SOURCES = ("gru_fwd", "gru_bwd", "fused_ce")
+SOURCES = ("gru_fwd", "gru_bwd", "fused_ce", "fused_argmax")
 # Kernel against twin, for each output: max |kernel - twin| <= KERNEL_TOL *
 # max |twin| (fp32, sums in other orders; B3 also elementwise, as before).
 # B2's dW and db are also held on the columns that no row labels, where
 # only the softmax term lands (~1e-6 there against ~1e-2 at a label).
 KERNEL_TOL = 1e-5
-SHAPE_KEYS = ("B", "T", "H", "F", "A", "valid", "masked", "reverse", "precision")
+SHAPE_KEYS = ("B", "T", "H", "F", "A", "K", "valid", "masked", "reverse", "precision")
 
 GAP = 1e-5  # ids are compared where adjacent top-k values differ by more
 
@@ -152,6 +168,19 @@ def ce_bound(B, F, A, valid, precision, backward):
     return bound(n_bytes, flops, peak)
 
 
+def argmax_bound(B, F, A, valid, K, precision):
+    """Least time for B5 (K = 1) or B6 over the ``valid`` columns: h, the K
+    heads' valid columns of W and b, and the weights read once; the ids
+    (int64) and maxima written once; K (B, F, valid) products, three bf16
+    passes each in "high" on the tensor cores, one in "default", fp32 FMA in
+    "highest" (the weighted sum and the comparisons, ~K B valid operations,
+    not counted)."""
+    passes = {"highest": 1, "high": 3, "default": 1}[precision]
+    peak = FP32_FLOPS if precision == "highest" else BF16_FLOPS
+    n_bytes = 4 * (B * F + K * F * valid + K * valid + K) + 12 * B
+    return bound(n_bytes, 2.0 * B * F * valid * K * passes, peak)
+
+
 def max_err(got, want):
     return max((a - w).abs().max().item() for a, w in zip(got, want))
 
@@ -177,17 +206,20 @@ def check_close(got, want, names, what, tol=KERNEL_TOL):
 
 def counters():
     """The launch counters of every kernel wrapper, by kernel."""
-    from ikea_recommender_tpu_torch.ops import fused_ce, gru_cuda
+    from ikea_recommender_tpu_torch.ops import fused_argmax, fused_ce, gru_cuda
 
     return {"B1 fused_ce_fwd": fused_ce.LAUNCHES, "B2 fused_ce_bwd": fused_ce.BWD_LAUNCHES,
-            "B3 gru_fwd": gru_cuda.LAUNCHES, "B4 gru_bwd": gru_cuda.BWD_LAUNCHES}
+            "B3 gru_fwd": gru_cuda.LAUNCHES, "B4 gru_bwd": gru_cuda.BWD_LAUNCHES,
+            "B5 fused_argmax": fused_argmax.LAUNCHES,
+            "B6 fused_wargmax": fused_argmax.WEIGHTED_LAUNCHES}
 
 
 def reset_counters():
-    from ikea_recommender_tpu_torch.ops import fused_ce, gru_cuda
+    from ikea_recommender_tpu_torch.ops import fused_argmax, fused_ce, gru_cuda
 
     fused_ce.LAUNCHES = fused_ce.BWD_LAUNCHES = 0
     gru_cuda.LAUNCHES = gru_cuda.BWD_LAUNCHES = 0
+    fused_argmax.LAUNCHES = fused_argmax.WEIGHTED_LAUNCHES = 0
 
 
 def phase_device():
@@ -397,14 +429,116 @@ def kernels_fused_ce():
     return rows
 
 
+def argmax_case(B, F, A, valid, K, integer, seed):
+    """Seeded (h, w, b, q_weights or None) on the card, NaN in the columns
+    >= valid; with ``integer`` small integers (weights 0.5, 0.25, ...), so
+    every sum is exact and rows tie, and columns 127, 128 (the two sides of
+    a kernel tile edge) and valid - 1 are copies, made each row's largest."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    heads = 1 if K is None else K
+    if integer:
+        h = torch.randint(-2, 3, (B, F), device="cuda", generator=g).float()
+        w = torch.randint(-2, 3, (heads, F, A), device="cuda", generator=g).float()
+        b = torch.randint(-4, 5, (heads, A), device="cuda", generator=g).float()
+        q = 0.5 ** torch.arange(1, heads + 1, device="cuda", dtype=torch.float32)
+    else:
+        h = torch.randn(B, F, device="cuda", generator=g)
+        w = torch.randn(heads, F, A, device="cuda", generator=g) / F**0.5
+        b = torch.randn(heads, A, device="cuda", generator=g) * 0.1
+        q = torch.tensor([1.0, 1.0, 1.0][:heads] + [0.5] * (heads - 3), device="cuda")
+    w[..., valid:] = float("nan")
+    b[..., valid:] = float("nan")
+    if integer:
+        for col in (128, valid - 1):
+            w[..., col], b[..., col] = w[..., 127], b[..., 127]
+        b[..., [127, 128, valid - 1]] = 1000.0
+    return (h, w[0], b[0], None) if K is None else (h, w, b, q)
+
+
+def kernels_fused_argmax():
+    """B5 fused_argmax and B6 fused_wargmax against their twins: the max
+    within KERNEL_TOL of the twin's largest |max|, ids equal wherever the
+    twin's top two values differ by more (the rest counted); on the
+    integer cases the ids equal everywhere, ties to the lowest id. Returns
+    the train points' rows (sqn's B5, smorl's B6 at K = 3, "high")."""
+    from ikea_recommender_tpu_torch.ops.fused_argmax import (
+        fused_linear_argmax,
+        fused_weighted_multihead_argmax,
+        head_values_plain,
+    )
+
+    rows = {}
+    for name, B, Fd, A, valid, K, precision, integer in [
+        ("B5 fused_argmax", 256, 64, 70852, 70852, None, "high", False),  # the sqn point
+        ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "high", False),  # the smorl point
+        ("B5 fused_argmax", 256, 64, 70852, 70852, None, "highest", False),
+        ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "highest", False),
+        ("B5 fused_argmax", 256, 64, 70912, 70852, None, "high", False),  # NaN in the pad
+        ("B6 fused_wargmax", 256, 64, 70912, 70852, 3, "high", False),
+        ("B5 fused_argmax", 256, 64, 70912, 70852, None, "high", True),  # forced ties
+        ("B6 fused_wargmax", 256, 64, 70912, 70852, 3, "high", True),
+        ("B5 fused_argmax", 1, 64, 70852, 70852, None, "high", False),  # one row
+        ("B6 fused_wargmax", 1, 64, 70852, 70852, 3, "high", False),
+    ]:
+        h, w, b, q = argmax_case(B, Fd, A, valid, K, integer, seed=B + A + (K or 1))
+        shape = dict(B=B, F=Fd, A=A, valid=valid, K=K or 1, precision=precision,
+                     ties=integer)
+
+        def kernel():
+            if q is None:
+                return fused_linear_argmax(h, w, b, valid, precision, with_max=True)
+            return fused_weighted_multihead_argmax(h, w, b, q, valid, precision, with_max=True)
+
+        def plain():
+            v = head_values_plain(h, w, b, valid, precision, q)
+            return v.argmax(dim=1), v.amax(dim=1)
+
+        idx, mx = kernel()
+        torch.cuda.synchronize()
+        v = head_values_plain(h, w, b, valid, precision, q)
+        idx_p, mx_p = v.argmax(dim=1), v.amax(dim=1)
+        top2 = v.topk(2, dim=1).values
+        scale = mx_p.abs().max().item()
+        clear = (top2[:, 0] - top2[:, 1]) > KERNEL_TOL * scale
+        err = (mx - mx_p).abs().max().item()
+        if not (torch.isfinite(mx).all() and (idx < valid).all()):
+            fail(f"{name} at {shape}: non-finite max or an id past valid_dim")
+        if err > KERNEL_TOL * scale:
+            fail(f"{name} at {shape}: max differs from the twin by {err:.3g}")
+        if integer and not (torch.equal(idx, idx_p) and (idx == 127).all()):
+            fail(f"{name} at {shape}: exact ties not broken to the lowest id 127")
+        if (idx != idx_p)[clear].any():
+            fail(f"{name} at {shape}: ids differ from the twin at separated rows")
+        excluded = int((~clear).sum())
+        if not integer and excluded > max(2, B // 50):
+            fail(f"{name} at {shape}: {excluded} rows with near-tied maxima")
+
+        wv = w[..., :valid].contiguous()
+        bv = b[..., :valid].contiguous()
+        if q is None:
+            library_ms = graph_ms(lambda: torch.argmax(torch.addmm(bv, h, wv), 1), 20)
+        else:
+            library_ms = graph_ms(lambda: torch.argmax(torch.einsum(
+                "kba,k->ba", torch.matmul(h, wv) + bv[:, None, :], q), 1), 20)
+        bound_ms, bound_by = argmax_bound(B, Fd, A, valid, K or 1, precision)
+        row = dict(shape, max_abs_err=err, rel_err=err / scale, excluded_rows=excluded,
+                   ms=graph_ms(kernel, 20), call_ms=eager_ms(kernel, 20),
+                   plain_ms=graph_ms(plain, 3), library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print(f"[kernels] {name} {json.dumps(row)}")
+        rows.setdefault(name, row)
+    return rows
+
+
 def phase_kernels():
     """Every kernel against its twin. Returns the rows of the main paths'
     shapes: B3 at the train and serving points, B4, B1 and B2 at the train
-    point."""
+    point, B5 and B6 at the sqn and smorl train points."""
     b3 = kernels_gru_fwd()
     rows = {"B3 gru_fwd": b3[(256, 10, 64)], "B3 serving": b3[(512, 10, 64)],
             "B4 gru_bwd": kernels_gru_bwd()}
     rows.update(kernels_fused_ce())
+    rows.update(kernels_fused_argmax())
     return rows
 
 
@@ -548,8 +682,7 @@ def profile_serving(rec, rows, T, pad_id, K):
 
 
 def bench_batch(rs, B, A, T):
-    """A train batch drawn as bench.py:125-138 draws it (the fields the
-    step does not read are drawn too, so the sequence is the same)."""
+    """A train batch drawn as bench.py:125-138 draws it."""
     batch = {
         "state": rs.randint(0, A, (B, T)).astype(np.int32),
         "action": rs.randint(0, A, (B,)).astype(np.int32),
@@ -560,7 +693,7 @@ def bench_batch(rs, B, A, T):
         "is_end": rs.rand(B) < 0.2,
         "valid": np.ones((B,), bool),
     }
-    return {k: batch[k] for k in ("state", "action", "true_len", "valid")}
+    return batch
 
 
 def named_leaves(tree, path=""):
@@ -591,7 +724,9 @@ def phase_train(profile=False):
         fail("the RetailRocket width must train through the fused CE in 'high'")
     np_params = numpy_init_params(mc, seed=0)
     rs = np.random.RandomState(0)
-    batches = [bench_batch(rs, B, A, T) for _ in range(N_CHECK + 1 + N_TIMED)]
+    batches = [{k: v for k, v in bench_batch(rs, B, A, T).items()
+                if k in ("state", "action", "true_len", "valid")}  # what the step reads
+               for _ in range(N_CHECK + 1 + N_TIMED)]
     batches[N_CHECK - 1]["valid"][200:] = False  # a tail batch of 200 sessions
 
     # -- the same 3 steps on the card and on CPU copies, where the twins run
@@ -668,15 +803,185 @@ def phase_train(profile=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m["sup_loss"])
     launches = counters()
-    if any(n != N_TIMED for n in launches.values()):
-        fail(f"{N_TIMED} train steps launched {launches}")
+    check_launches("gru4rec", launches, N_TIMED)
     if not torch.isfinite(torch.stack(metrics)).all():
         fail("non-finite train loss")
+    step_ms_line("gru4rec", A, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
+    if profile:
+        profile_train(step, state, batches[-1])
+    return launches
+
+
+# Launches per train step of each kernel, by family (B3 runs on the state,
+# and in sqn and smorl also on the next state with each net).
+PER_STEP = {
+    "gru4rec": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 1, "B4 gru_bwd": 1},
+    "sqn": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1,
+            "B5 fused_argmax": 1},
+    "smorl": {"B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1, "B6 fused_wargmax": 1},
+}
+
+
+def check_launches(family, launches, n_steps):
+    want = {name: PER_STEP[family].get(name, 0) * n_steps for name in launches}
+    if launches != want:
+        fail(f"{n_steps} {family} train steps launched {launches}, expected {want}")
+
+
+def step_ms_line(family, A, E, T, B, step_ms, launches, last_loss):
     ms = float(np.median(step_ms))
-    print(f"[train] gru4rec A={A} E=H={E} T={T} B={B} high: {N_TIMED} steps, "
+    print(f"[train] {family} A={A} E=H={E} T={T} B={B} high: {len(step_ms)} steps, "
           f"ms per step median {ms:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}, "
           f"p90 {float(np.percentile(step_ms, 90)):.3f}) = {B / ms * 1e3:.0f} sessions/s; "
-          f"launches {launches}; last loss {metrics[-1].item():.5f}")
+          f"launches {launches}; last loss {last_loss}")
+
+
+def phase_double_q(family, profile=False):
+    """The sqn or smorl train step at full width: 3 steps with fixed coins
+    against CPU copies, then 1 warm-up and 20 timed steps with the coins
+    drawn on the host. Returns the timed run's launches."""
+    from ikea_recommender_tpu_torch.convert import (
+        numpy_init_double_q,
+        params_from_numpy,
+        tree_leaves,
+    )
+    from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
+    from ikea_recommender_tpu_torch.models.families import apply_features, model_config_from_train
+    from ikea_recommender_tpu_torch.ops.fused_argmax import head_values_plain
+    from ikea_recommender_tpu_torch.train.state import make_double_q_state
+    from ikea_recommender_tpu_torch.train.steps import (
+        RLStepConfig,
+        double_q_loss_and_grads,
+        make_train_step,
+    )
+
+    A, E, T, B, LR, N_TIMED = 70852, 64, 10, 256, 0.01, 20
+    COINS = (0, 1, 1)  # both nets train, one of them twice in a row
+    tc = TrainConfig(model=family, batch_size=B, embedding_size=E, hidden_state_size=E,
+                     state_size=T, learning_rate=LR, fused_ce=True, head_precision="high")
+    mc = model_config_from_train(tc, DataConfig(num_items=A))
+    if not (mc.fused_ce and mc.head_precision == "high"):
+        fail(f"the RetailRocket width must train {family} through the fused path in 'high'")
+    rl = RLStepConfig()
+    np_pair = numpy_init_double_q(mc, (0, 1))
+    rs = np.random.RandomState(0)
+    aux = {}
+    if family == "smorl":  # as bench.py:94-100 draws them, before the batches
+        aux = {"div_embedding": rs.randn(A + 1, E).astype(np.float32),
+               "unpopular_mask": np.arange(A) % 10 == 0}
+    batches = [bench_batch(rs, B, A, T) for _ in range(len(COINS) + 1 + N_TIMED)]
+    batches[len(COINS) - 1]["valid"][200:] = False  # a tail batch of 200 sessions
+    head = "q_head" if family == "sqn" else "q_heads"
+
+    # -- the same 3 steps on the card and on CPU copies, where the twins run
+    states, steps = {}, {}
+    for dev in ("cuda", "cpu"):
+        pair = [params_from_numpy(p, dev) for p in np_pair]
+        states[dev], opt = make_double_q_state(pair, mc, LR, device=dev)
+        steps[dev] = make_train_step(mc, opt, rl, device=dev, **aux)
+
+    def on(dev, batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    grads = {dev: double_q_loss_and_grads(states[dev].params, on(dev, batches[0]), mc, rl,
+                                          COINS[0], steps[dev].aux)[1] for dev in states}
+    # first-step gradients of the main net, per leaf, as the gru4rec phase
+    # holds them; the supervised head's unlabelled columns at their own scale
+    got_g, want_g = (named_leaves(grads[dev]) for dev in ("cuda", "cpu"))
+    off = torch.ones(A, dtype=torch.bool)
+    off[torch.as_tensor(batches[0]["action"]).long()] = False
+    for d in (got_g, want_g):
+        d["sup_head/kernel off-label"] = d["sup_head/kernel"][:, off]
+        d["sup_head/bias off-label"] = d["sup_head/bias"][off]
+    grad_err = check_close([got_g[k] for k in want_g], list(want_g.values()), list(want_g),
+                           f"{family} step: first-step gradient against the CPU twins", 1e-4)
+
+    losses = {"cuda": [], "cpu": []}
+    mus = [[named_leaves(states["cpu"].opt_state[n].mu) for n in (0, 1)]]
+    id_diffs, near = 0, []
+    for b, coin in zip(batches, COINS):
+        # the twin's gap between the main net's two best next actions, read
+        # on the CPU side before the step moves its params
+        cpu_main = states["cpu"].params[coin]
+        with torch.no_grad():
+            bc = on("cpu", b)
+            h_next = apply_features(cpu_main, mc, bc["next_state"], bc["true_next_len"])
+            qh = cpu_main[head]
+            v = head_values_plain(h_next, qh["kernel"], qh["bias"], mc.action_dim,
+                                  mc.head_precision, steps["cpu"].aux.get("q_weights"))
+            top2 = v.topk(2, dim=1).values
+            gap = top2[:, 0] - top2[:, 1]
+            scale = top2[:, 0].abs().max().item()
+        kept = states["cuda"]
+        before = [t.clone() for t in tree_leaves((kept.params[1 - coin],
+                                                  kept.opt_state[1 - coin].mu,
+                                                  kept.opt_state[1 - coin].nu))]
+        targets = {}
+        for dev in states:
+            states[dev], m = steps[dev](states[dev], b, coin=coin)
+            losses[dev].append((m["sup_loss"].item(), m["q_loss"].item()))
+            targets[dev] = m["target_action"].cpu()
+        after = tree_leaves((kept.params[1 - coin], kept.opt_state[1 - coin].mu,
+                             kept.opt_state[1 - coin].nu))
+        if not all(torch.equal(x, y) for x, y in zip(before, after)):
+            fail(f"{family} step: the net the step did not train moved")
+        differ = targets["cuda"] != targets["cpu"]
+        id_diffs += int(differ.sum())
+        near.append(int((gap <= KERNEL_TOL * scale).sum()))
+        if (differ & (gap > KERNEL_TOL * scale)).any():
+            fail(f"{family} step: target actions differ from the CPU twins' at rows whose "
+                 f"two best values are more than {KERNEL_TOL:g} of the largest apart")
+        mus.append([named_leaves(states["cpu"].opt_state[n].mu) for n in (0, 1)])
+    loss_err = max(abs(a - c) for x, y in zip(losses["cuda"], losses["cpu"]) for a, c in zip(x, y))
+    if loss_err > 1e-4:
+        fail(f"{family} step: losses {losses['cuda']} differ from the CPU twins' {losses['cpu']}")
+    # params of both nets after 3 steps over the entries some step moved, as
+    # the gru4rec phase; each net's gradients read off its first moment at
+    # the steps that trained it
+    compared, param_err = {}, 0.0
+    for n in (0, 1):
+        got_p, want_p = (named_leaves(states[dev].params[n]) for dev in ("cuda", "cpu"))
+        for name, want in want_p.items():
+            g = torch.stack([(mus[k + 1][n][name] - 0.9 * mus[k][n][name]) / 0.1
+                             if COINS[k] == n else torch.zeros_like(want)
+                             for k in range(len(COINS))])
+            moved = (g != 0).any(dim=0)
+            sure = moved & ((g == 0) | (g.abs() > 1e-6)).all(dim=0)
+            err = (got_p[name] - want)[sure].abs().max().item() if sure.any() else 0.0
+            param_err = max(param_err, err)
+            if err > 1e-5:
+                fail(f"{family} step: net {n} {name} after {len(COINS)} steps differs by {err:.3g}")
+            compared[f"{n}/{name}"] = (int(sure.sum()), int(moved.sum()))
+    n_sure, n_moved = (sum(c[i] for c in compared.values()) for i in (0, 1))
+    head_sure = sum(compared[f"{n}/sup_head/kernel"][0] for n in (0, 1))
+    head_moved = sum(compared[f"{n}/sup_head/kernel"][1] for n in (0, 1))
+    if n_sure < 0.2 * n_moved or head_sure < 0.15 * head_moved:
+        fail(f"{family} step: too few params compared: {compared} (compared, moved)")
+    print(f"[train] {family}: {len(COINS)} steps (coins {COINS}) on the card vs the CPU twins: "
+          f"losses (sup, q) {losses['cuda']}, max loss diff {loss_err:.3g}; first-step grads "
+          f"rel diff {json.dumps(grad_err)}; target ids differing {id_diffs} (rows within "
+          f"{KERNEL_TOL:g} of a tie: {near}); params max diff {param_err:.3g} over {n_sure} of "
+          f"{n_moved} moved entries ({n_sure / n_moved:.4f}; sup head kernel {head_sure} of "
+          f"{head_moved})")
+
+    # -- timed: the card's state goes on; 1 warm-up step, then 20 steps
+    state, step = states["cuda"], steps["cuda"]
+    del states["cpu"]
+    state, _ = step(state, batches[len(COINS)])
+    torch.cuda.synchronize()
+    reset_counters()
+    step_ms, metrics = [], []
+    for b in batches[len(COINS) + 1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m["sup_loss"] + m["q_loss"])
+    launches = counters()
+    check_launches(family, launches, N_TIMED)
+    if not torch.isfinite(torch.stack(metrics)).all():
+        fail(f"non-finite {family} train loss")
+    step_ms_line(family, A, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
     if profile:
         profile_train(step, state, batches[-1])
     return launches
@@ -714,8 +1019,11 @@ def main():
     phase_build()
     rows = phase_kernels()
     profile = "--profile" in sys.argv[1:]
-    serving_launches = phase_serving(profile=profile)
-    launches = phase_train(profile=profile)
+    # each path's launches, its counters reset just before its timed run
+    paths = {"serving": {"B3 gru_fwd": phase_serving(profile=profile)},
+             "gru4rec": phase_train(profile=profile)}
+    for family in ("sqn", "smorl"):
+        paths[family] = phase_double_q(family, profile=profile)
     # the card's machine has jax installed: show the port never loaded it
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))
@@ -731,16 +1039,23 @@ def main():
                        "mask; not the same function"),
         "B4 gru_bwd": ("gru_bwd.cu", "ikea_recommender_tpu/ops/gru_pallas.py:154",
                        "torch.nn.GRU backward (cuDNN), no mask; not the same function"),
+        "B5 fused_argmax": ("fused_argmax.cu", "ikea_recommender_tpu/ops/fused_argmax.py:48",
+                            "argmax(addmm(b, h, W)), fp32 cuBLAS"),
+        "B6 fused_wargmax": ("fused_argmax.cu", "ikea_recommender_tpu/ops/fused_argmax.py:144",
+                             "argmax of the weighted sum of the dense (K, B, A) heads, "
+                             "fp32 cuBLAS"),
     }
     kernels = []
     for name, (source, replaces, library) in meta.items():
         row = rows[name]
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"ikea_recommender_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -752,8 +1067,7 @@ def main():
         }
         if name == "B3 gru_fwd":
             serving = rows["B3 serving"]
-            entry.update(serving_launches=serving_launches, serving_ms=serving["ms"],
-                         serving_bound_ms=serving["bound_ms"])
+            entry.update(serving_ms=serving["ms"], serving_bound_ms=serving["bound_ms"])
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

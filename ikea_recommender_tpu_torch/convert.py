@@ -13,14 +13,16 @@ as the flat ``"a/b/0/c"``-keyed dict of the reference's
 ``run/checkpoints.py::save_params_npz``. :func:`numpy_init_params` draws a
 tree with the reference's init distributions from a numpy seed.
 :func:`opt_state_from_numpy` carries optax's Adam state (``count``, ``mu``,
-``nu``) across, so a run of the reference can be continued in the port.
+``nu``) across, so a run of the reference can be continued in the port;
+:func:`double_q_from_numpy` does the same for the double-Q pair of sqn and
+smorl, whose two nets :func:`numpy_init_double_q` draws from two seeds.
 :func:`tree_leaves` fixes the one leaf order (keys sorted, as JAX orders
 them) that params, gradients and Adam moments share.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +160,39 @@ def numpy_init_params(cfg, seed: int) -> Dict:
         K = cfg.num_q_heads
         params["q_heads"] = {"kernel": uni(b, (K, F, A)), "bias": uni(b, (K, A))}
     return params
+
+
+def numpy_init_double_q(cfg, seeds: Sequence[int] = (0, 1)) -> Tuple[Dict, Dict]:
+    """The (net0, net1) pair of a double-Q family, each drawn by
+    :func:`numpy_init_params` from its own seed (the reference draws the
+    two nets independently from its PRNG)."""
+    if len(seeds) != 2 or seeds[0] == seeds[1]:
+        raise ValueError(f"the two nets need two different seeds, got {tuple(seeds)}")
+    return numpy_init_params(cfg, seeds[0]), numpy_init_params(cfg, seeds[1])
+
+
+def _adam_states(opt_state) -> List:
+    """The optax ``ScaleByAdamState``s (anything with ``count``, ``mu`` and
+    ``nu``) inside an optimizer state, depth first."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return [opt_state]
+    if isinstance(opt_state, (list, tuple)):
+        return [s for part in opt_state for s in _adam_states(part)]
+    return []
+
+
+def double_q_from_numpy(params, opt_state, device="cuda"):
+    """A reference ``DoubleQState``'s ``params`` (net0, net1) and
+    ``opt_state``, with numpy leaves -> (params pair, opt state) for the
+    port's ``train.state.DoubleQState`` on ``device``. The optimizer state
+    is one Adam state per net (the default, two optimizers), or one over the
+    pair (``single_optimizer``); which one is read off the state."""
+    pair = tuple(params_from_numpy(p, device) for p in params)
+    adam = [opt_state_from_numpy(s, device) for s in _adam_states(opt_state)]
+    if len(adam) == 2:
+        return pair, tuple(adam)
+    if len(adam) == 1 and isinstance(adam[0].mu, list) and len(adam[0].mu) == 2:
+        return pair, adam[0]
+    raise ValueError(
+        f"expected one Adam state per net or one over the pair, found {len(adam)}"
+    )

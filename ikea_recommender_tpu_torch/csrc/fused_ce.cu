@@ -14,16 +14,11 @@
 // Layouts, all contiguous: h (B, F), W (F, A), b (A), labels (B) int64,
 // lse, g, ct (B), dW (F, A), db (A), dh (B, F), all fp32.
 //
-// Precision of the three products, as _dot/_dot3 of the TPU kernels:
-//   0 "highest": fp32 FMA.
-//   1 "high": each operand x is split into hi = bf16(x), lo = bf16(x - hi),
-//     and the kernel sums hi*hi + hi*lo + lo*hi in fp32. A product of two
-//     bf16 values is exact in fp32, so this is the TPU's bf16x3 function up
-//     to the order of the sums.
-//   2 "default": bf16(a) * bf16(b) summed in fp32.
-// Every product runs on the CUDA cores here; moving "high" and "default"
-// onto bf16 tensor cores is later work, so until then "high" does three
-// times the FMAs of "highest" and is slower.
+// Precision of the three products, as _dot/_dot3 of the TPU kernels: see
+// head_tile.cuh ("highest" fp32 FMA, "high" the bf16x3 split, "default" one
+// bf16 pass). Every product runs on the CUDA cores here; moving "high" and
+// "default" onto bf16 tensor cores is later work, so until then "high" does
+// three times the FMAs of "highest" and is slower.
 //
 // What bounds it: at the train point (B=256, F=64, A=70852) B1 reads W once
 // (18.1 MB) and does 2.32 GFLOP per pass, B2 reads W and writes dW (36 MB)
@@ -34,7 +29,8 @@
 // B1 design: the TPU walks column blocks in order and carries the running
 // (max, sum-exp, label logit) from one grid step to the next. Here each
 // block owns 128 columns x 64 rows, computes its logits tile in registers
-// (a 4 x 8 tile per thread, K in chunks of 16 through shared memory), and
+// (head_tile.cuh: a 4 x 8 tile per thread, K in chunks of 16 through shared
+// memory; B5 and B6 share it), and
 // writes per-row partials (m, s, g) of its columns; a second kernel merges
 // them per row: m = max m_i, s = sum s_i exp(m_i - m), g = sum g_i,
 // lse = m + log s. The -1e30 sentinel is finite, never -inf, so a block
@@ -50,102 +46,32 @@
 // run to run. Where (B, F) does not fit next to the tiles, the rows go in
 // groups, one launch each, adding into dW and db.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "head_tile.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
+using namespace head_tile;
+
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// hi and lo parts of x for precision P (lo is used by P == 1 only).
-template <int P>
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  if constexpr (P == 0) {
-    hi = x;
-    lo = 0.0f;
-  } else {
-    hi = bf16_round(x);
-    lo = P == 1 ? bf16_round(x - hi) : 0.0f;
-  }
-}
-
-template <int P>
-__device__ __forceinline__ float mac(float ahi, float alo, float bhi, float blo, float acc) {
-  acc = fmaf(ahi, bhi, acc);
-  if constexpr (P == 1) {
-    acc = fmaf(ahi, blo, acc);
-    acc = fmaf(alo, bhi, acc);
-  }
-  return acc;
-}
+static_assert(kThreads == kTileThreads, "B1 runs the shared logits tile");
 
 // ---------------------------------------------------------------------------
 // B1: per-(column block, row) partials, then a per-row merge
 // ---------------------------------------------------------------------------
-
-constexpr int kFwdRows = 64, kFwdCols = 128, kFwdK = 16;
 
 template <int P>
 __global__ void __launch_bounds__(kThreads)
 ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const float* __restrict__ bias, const long long* __restrict__ labels,
               float* __restrict__ part, int B, int F, int A, int valid) {
-  constexpr bool LO = P == 1;
-  __shared__ float h_hi[kFwdRows][kFwdK + 1], h_lo[LO ? kFwdRows : 1][kFwdK + 1];
-  __shared__ float w_hi[kFwdK][kFwdCols], w_lo[LO ? kFwdK : 1][kFwdCols];
+  __shared__ TileSmem<P> smem;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * kFwdCols, m0 = blockIdx.y * kFwdRows;
-
+  const int n0 = blockIdx.x * kTileCols, m0 = blockIdx.y * kTileRows;
   float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < F; k0 += kFwdK) {
-    for (int e = tid; e < kFwdRows * kFwdK; e += kThreads) {
-      const int m = e / kFwdK, k = e % kFwdK;
-      const float x = (m0 + m < B && k0 + k < F) ? h[(size_t)(m0 + m) * F + k0 + k] : 0.0f;
-      float hi, lo;
-      split<P>(x, hi, lo);
-      h_hi[m][k] = hi;
-      if constexpr (LO) h_lo[m][k] = lo;
-    }
-    for (int e = tid; e < kFwdK * kFwdCols; e += kThreads) {
-      const int k = e / kFwdCols, n = e % kFwdCols;
-      const float x = (k0 + k < F && n0 + n < A) ? w[(size_t)(k0 + k) * A + n0 + n] : 0.0f;
-      float hi, lo;
-      split<P>(x, hi, lo);
-      w_hi[k][n] = hi;
-      if constexpr (LO) w_lo[k][n] = lo;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kFwdK; ++k) {
-      float ahi[4], alo[4], bhi[8], blo[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ahi[i] = h_hi[ty + 16 * i][k];
-        alo[i] = LO ? h_lo[ty + 16 * i][k] : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        bhi[j] = w_hi[k][tx + 16 * j];
-        blo[j] = LO ? w_lo[k][tx + 16 * j] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = mac<P>(ahi[i], alo[i], bhi[j], blo[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  logits_tile<P>(h, w, B, F, A, m0, n0, smem, acc);
 
   // Per row: max, sum of exp and label logit over this block's columns. The
   // 16 threads of a row (equal ty) are one half-warp.
@@ -515,7 +441,7 @@ cudaError_t launch_bwd(const float* h, const float* w, const float* b, const lon
 
 // Floats of scratch that fused_ce_fwd needs for (B, A): per-row partials.
 extern "C" long long fused_ce_fwd_scratch(int B, int A) {
-  return 3LL * B * ((A + kFwdCols - 1) / kFwdCols);
+  return 3LL * B * ((A + kTileCols - 1) / kTileCols);
 }
 
 // Launches B1 on `stream`: lse and label logit (B) of h W + b masked at
@@ -526,7 +452,7 @@ extern "C" int fused_ce_fwd(const float* h, const float* w, const float* b,
   if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((A + kFwdCols - 1) / kFwdCols, (B + kFwdRows - 1) / kFwdRows);
+  const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
   if (precision == 0)
     ce_fwd_kernel<0><<<grid, kThreads, 0, st>>>(h, w, b, labels, scratch, B, F, A, valid);
   else if (precision == 1)

@@ -4,8 +4,8 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface, loaded with :mod:`ctypes`; :func:`build_all` runs one
 ``nvcc`` per source, all at once. Libraries go to ``_build/``
 beside the package (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -47,8 +47,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

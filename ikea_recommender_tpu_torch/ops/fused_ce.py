@@ -21,6 +21,10 @@ bf16 high part and a bf16 residual and sums three bf16 products in fp32
 (``_dot3``); ``"default"`` is one product of bf16-rounded operands summed in
 fp32. Products of bf16 values are exact in fp32, so the twins, the kernels
 and the reference compute the same function up to the order of the sums.
+
+:func:`fused_softmax_ce_topk` (smorl's supervised head) takes the CE and the
+logits' top-k ids from one blockwise pass (``ops/fused_topk.py``) instead
+of B1, and its backward is B2.
 """
 
 from __future__ import annotations
@@ -257,3 +261,41 @@ def fused_softmax_ce(
     fp32, differentiable in h, w and b. ``valid_dim`` is a plain int
     that the kernels take at run time."""
     return _FusedSoftmaxCE.apply(h, w, b, labels, int(valid_dim), precision)
+
+
+class _FusedSoftmaxCETopk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, labels, k, valid_dim, precision):
+        from ikea_recommender_tpu_torch.ops.fused_topk import blockwise_head_topk_ce
+
+        _check(h, w, b, labels, valid_dim, precision)
+        _, top_i, m, s, lbl = blockwise_head_topk_ce(
+            h, w, b, k, valid_dim, labels=labels, raw_pieces=True, precision=precision
+        )
+        lse = m + torch.log(s)
+        ctx.valid_dim, ctx.precision = valid_dim, precision
+        ctx.save_for_backward(h, w, b, labels, lse)
+        ctx.mark_non_differentiable(top_i)
+        return lse - lbl, top_i
+
+    @staticmethod
+    def backward(ctx, ct, _top_i_ct):
+        h, w, b, labels, lse = ctx.saved_tensors
+        dh, dw, db = fused_ce_bwd(h, w, b, labels, lse, ct, ctx.valid_dim, ctx.precision)
+        return dh, dw, db, None, None, None, None
+
+
+def fused_softmax_ce_topk(
+    h: torch.Tensor,  # (B, F)
+    w: torch.Tensor,  # (F, A) head kernel
+    b: torch.Tensor,  # (A,) head bias
+    labels: torch.Tensor,  # (B,) int
+    k: int,
+    valid_dim: int,
+    precision: str = "highest",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-example CE (B,) fp32, top-k ids (B, k) int64) of ``h @ w + b``
+    from one blockwise pass (``blockwise_head_topk_ce`` with ``raw_pieces``;
+    no B1). Differentiable in h, w and b through the CE only, whose backward
+    is B2 on the card; the ids take no gradient."""
+    return _FusedSoftmaxCETopk.apply(h, w, b, labels, int(k), int(valid_dim), precision)

@@ -4,8 +4,15 @@ exist whole.
 Port of ``ikea_recommender_tpu/ops/fused_topk.py`` (``blockwise_head_topk_ce``
 and ``eval_head``). The reference runs a ``lax.scan`` over 4096-column
 blocks of the head, not a Pallas kernel; here it is a loop over the same
-blocks, each one fp32 ``torch.matmul``. Per sample it keeps an exact
-running top-k, a running logsumexp and the label logit.
+blocks, each one head product. Per sample it keeps an exact running top-k,
+a running logsumexp and the label logit.
+
+``precision`` names the head product's precision as the fused CE does
+(``ops/fused_ce.py::_dot``): None or ``"highest"`` is fp32, ``"high"`` the
+bf16x3 split, ``"default"`` one bf16 pass. The reference maps the names to
+XLA's ``Precision``; XLA on the CPU computes ``Precision.HIGH`` and
+``DEFAULT`` in full fp32, so there the two packages agree only for None and
+``"highest"``.
 
 Tie order is explicit. ``lax.top_k`` puts the lower index first among equal
 values, and the reference's merge keeps the carry (lower ids) ahead of the
@@ -22,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ikea_recommender_tpu_torch.models.families import canonicalize_qheads
+from ikea_recommender_tpu_torch.ops.fused_ce import _dot
 
 # Masked (padded / not-yet-seen) logit sentinel. Finite so the running-max
 # rescale exp(m_old - m_new) never sees inf - inf.
@@ -66,6 +74,7 @@ def blockwise_head_topk_ce(
     block_cols: int = DEFAULT_BLOCK_COLS,
     col_offset: int = 0,  # global id of kernel column 0
     raw_pieces: bool = False,  # return (top_v, top_i, max, sumexp, label_logit)
+    precision: Optional[str] = None,  # None = fp32, as "highest"
 ) -> Tuple[torch.Tensor, ...]:
     """-> (top_vals (B, k), top_idx (B, k) int64, per_sample_ce (B,) or None).
 
@@ -97,7 +106,7 @@ def blockwise_head_topk_ce(
     for j in range(n_blocks):
         start = j * block_cols
         stop = min(start + block_cols, A_pad)
-        logits = torch.matmul(h, kernel[:, start:stop]) + bias[start:stop]
+        logits = _dot(h, kernel[:, start:stop], precision or "highest") + bias[start:stop]
         if stop - start < block_cols:
             logits = torch.nn.functional.pad(
                 logits, (0, block_cols - (stop - start)), value=_NEG

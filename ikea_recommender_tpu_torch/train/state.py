@@ -1,8 +1,9 @@
 """Train state and the Adam optimizer.
 
 Port of ``ikea_recommender_tpu/train/state.py`` (``TrainState``,
-``make_optimizer``, ``_scale_by_adam_mv`` and ``make_train_state``) for the
-single-network families (gru4rec, bidir_gru4rec).
+``DoubleQState``, ``make_optimizer``, ``_scale_by_adam_mv``,
+``make_train_state`` and ``make_double_q_state``): one network for gru4rec
+and bidir_gru4rec, the (net0, net1) pair of sqn and smorl.
 
 Adam is written out as tensor operations rather than taken from
 ``torch.optim``, so that the bf16-moment variant, and the lazy variants that
@@ -22,7 +23,7 @@ update never waits on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,6 +50,20 @@ class TrainState:
     opt_state: AdamState
     step: int
     generator: torch.Generator  # dropout masks; the reference's PRNG key
+
+
+@dataclass
+class DoubleQState:
+    """The double-Q pair of sqn and smorl: ``params`` is (net0, net1), and
+    ``opt_state`` one :class:`AdamState` per net, or one over the pair with
+    ``single_optimizer``. ``generator`` is a CPU generator that draws each
+    step's coin (which net is the main one) on the host, so choosing the
+    branch never waits on the device."""
+
+    params: Tuple[Dict, Dict]
+    opt_state: Any
+    step: int
+    generator: torch.Generator
 
 
 class Adam:
@@ -103,6 +118,25 @@ def make_optimizer(learning_rate: float, mv_dtype: Optional[str] = None) -> Adam
     return Adam(learning_rate, mv_dtype)
 
 
+def _check_params(params: Dict, model_cfg, dev: torch.device) -> None:
+    """The params lie on ``dev`` and have ``model_cfg``'s embedding and
+    head shapes."""
+    for leaf in tree_leaves(params):
+        if leaf.device.type != dev.type:
+            raise ValueError(f"params lie on {leaf.device}, the state on {dev}")
+    bb = model_cfg.backbone
+    F, A = bb.feature_dim, model_cfg.padded_action_dim
+    want = {"embedding": (bb.num_embeddings, bb.embedding_dim)}
+    got = {"embedding": tuple(params["backbone"]["embedding"].shape)}
+    heads = {"sup_head": (F, A), "q_head": (F, A), "q_heads": (model_cfg.num_q_heads, F, A)}
+    for name, shape in heads.items():
+        if name in params:
+            want[name] = shape
+            got[name] = tuple(params[name]["kernel"].shape)
+    if got != want:
+        raise ValueError(f"params have shapes {got}, the model config asks for {want}")
+
+
 def make_train_state(
     params: Dict, model_cfg, learning_rate: float, mv_dtype: Optional[str] = None,
     seed: int = 0, device="cuda",
@@ -110,20 +144,31 @@ def make_train_state(
     """A fresh state over ``params`` (already tensors on ``device``, e.g.
     from ``convert.params_from_numpy``; the reference's PRNG init cannot be
     reproduced, so the port takes params rather than drawing them). The
-    embedding and the head must have ``model_cfg``'s shapes. Raises without
+    embedding and the heads must have ``model_cfg``'s shapes. Raises without
     CUDA unless ``device="cpu"``."""
     dev = resolve_device(device)
-    for leaf in tree_leaves(params):
-        if leaf.device.type != dev.type:
-            raise ValueError(f"params lie on {leaf.device}, the state on {dev}")
-    bb = model_cfg.backbone
-    want = {"embedding": (bb.num_embeddings, bb.embedding_dim)}
-    got = {"embedding": tuple(params["backbone"]["embedding"].shape)}
-    if "sup_head" in params:
-        want["sup_head"] = (bb.feature_dim, model_cfg.padded_action_dim)
-        got["sup_head"] = tuple(params["sup_head"]["kernel"].shape)
-    if got != want:
-        raise ValueError(f"params have shapes {got}, the model config asks for {want}")
+    _check_params(params, model_cfg, dev)
     opt = make_optimizer(learning_rate, mv_dtype)
     generator = torch.Generator(device=dev).manual_seed(seed)
     return TrainState(params, opt.init(params), 0, generator), opt
+
+
+def make_double_q_state(
+    params: Sequence[Dict], model_cfg, learning_rate: float, mv_dtype: Optional[str] = None,
+    single_optimizer: bool = False, seed: int = 0, device="cuda",
+) -> Tuple[DoubleQState, Adam]:
+    """A fresh double-Q state over the pair ``params`` = (net0, net1), each
+    a param tree of tensors on ``device`` with ``model_cfg``'s shapes (e.g.
+    ``convert.numpy_init_double_q`` through ``params_from_numpy``). One Adam
+    state per net, or with ``single_optimizer`` one over the pair (the
+    reference's 1-vs-2-optimizer ablation). ``seed`` seeds the host
+    generator of the coin. Raises without CUDA unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    if len(params) != 2:
+        raise ValueError(f"a double-Q state takes two param trees, got {len(params)}")
+    for net in params:
+        _check_params(net, model_cfg, dev)
+    pair = tuple(params)
+    opt = make_optimizer(learning_rate, mv_dtype)
+    opt_state = opt.init(pair) if single_optimizer else tuple(opt.init(p) for p in pair)
+    return DoubleQState(pair, opt_state, 0, torch.Generator().manual_seed(seed)), opt

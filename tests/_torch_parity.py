@@ -62,3 +62,36 @@ def assert_topk_match(got_v, got_i, want_v, want_i, k, gap=1e-5, atol=ATOL):
     clear = (left > gap) & (d[:, :k] > gap)
     np.testing.assert_array_equal(np.where(clear, got_i[:, :k], -1), np.where(clear, want_i[:, :k], -1))
     assert clear.mean() > 0.5, "too few separated positions to compare ids"
+
+
+def model_configs(A, align=1, **train_kw):
+    """(port ModelConfig, reference ModelConfig) from the same TrainConfig
+    fields; ``fused_ce_min_actions=0`` lets a toy catalog take the fused CE
+    when ``fused_ce`` asks for it, and the reference runs its Pallas GRU."""
+    from ikea_recommender_tpu.core import config as jax_config
+    from ikea_recommender_tpu.models import families as jax_families
+    from ikea_recommender_tpu_torch.core import config
+    from ikea_recommender_tpu_torch.models import families
+
+    kw = dict(fused_ce_min_actions=0, scan_impl="pallas", **train_kw)
+    mc = families.model_config_from_train(
+        config.TrainConfig(**kw), config.DataConfig(num_items=A), align
+    )
+    jmc = jax_families.model_config_from_train(
+        jax_config.TrainConfig(**kw), jax_config.DataConfig(num_items=A), align
+    )
+    return mc, jmc
+
+
+def jax_leaves(tree):
+    """The leaves of a reference tree as fp32 numpy arrays."""
+    import jax
+
+    return [np.asarray(x, dtype=np.float32) for x in jax.tree.leaves(tree)]
+
+
+def torch_leaves(tree):
+    """The leaves of a port tree as fp32 numpy arrays, in the same order."""
+    from ikea_recommender_tpu_torch.convert import tree_leaves
+
+    return [x.detach().float().cpu().numpy() for x in tree_leaves(tree)]

@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in sorted(PORT.rglob("*.py"))
     ]
-    for new in ("ops.fused_ce", "train.state", "train.steps"):
+    for new in ("ops.fused_ce", "ops.fused_argmax", "ops.rl", "ops.rewards", "train.state",
+                "train.steps"):
         assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -79,6 +80,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     from ikea_recommender_tpu_torch.convert import (
+        double_q_from_numpy,
+        numpy_init_double_q,
         numpy_init_params,
         opt_state_from_numpy,
         params_from_numpy,
@@ -87,7 +90,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     from ikea_recommender_tpu_torch.models.families import model_config_from_train
     from ikea_recommender_tpu_torch.run import checkpoints, recommend
     from ikea_recommender_tpu_torch.run.serve import Recommender
-    from ikea_recommender_tpu_torch.train.state import make_train_state
+    from ikea_recommender_tpu_torch.train.state import make_double_q_state, make_train_state
     from ikea_recommender_tpu_torch.train.steps import make_train_step
 
     mc = model_config_from_train(
@@ -124,6 +127,30 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
              "true_len": np.ones(2, np.int32), "valid": np.ones(2, bool)}
     _, metrics = make_train_step(mc, opt, device="cpu")(state, batch)
     assert metrics["sup_loss"].device.type == "cpu"
+
+    # the double-Q slice: sqn and smorl
+    for family in ("sqn", "smorl"):
+        mq = model_config_from_train(
+            TrainConfig(model=family, embedding_size=4, hidden_state_size=4),
+            DataConfig(num_items=9),
+        )
+        np_pair = numpy_init_double_q(mq)
+        pair = [params_from_numpy(p, "cpu") for p in np_pair]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_double_q_state(pair, mq, 0.01)
+        dq, opt = make_double_q_state(pair, mq, 0.01, device="cpu")
+        aux = {"div_embedding": np.ones((10, 4), np.float32),
+               "unpopular_mask": np.arange(9) % 2 == 0} if family == "smorl" else {}
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_train_step(mq, opt, **aux)
+        adam = [SimpleNamespace(count=np.int32(0), mu=p, nu=p) for p in np_pair]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            double_q_from_numpy(np_pair, adam)
+        assert double_q_from_numpy(np_pair, adam, "cpu")[0][0]["sup_head"]["bias"].device.type == "cpu"
+        qbatch = dict(batch, reward=np.ones(2, np.float32), next_state=np.zeros((2, 3), np.int32),
+                      true_next_len=np.ones(2, np.int32), is_end=np.zeros(2, bool))
+        _, metrics = make_train_step(mq, opt, device="cpu", **aux)(dq, qbatch)
+        assert metrics["q_loss"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

