@@ -15,12 +15,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    kernel's time, the twin's, its bound and one PyTorch call's as a
    yardstick: B3 gru_fwd and B4 gru_bwd (the GRU recurrence and its
    adjoint), B1 fused_ce_fwd and B2 fused_ce_bwd (the softmax CE over the
-   catalog and its gradients), B5 fused_argmax and B6 fused_wargmax (the
-   argmax over the catalog of one Q head, and of K = 3 heads' weighted
-   sum: max within 1e-5 of the twin's largest, ids equal wherever the
-   twin's two best differ by more; also "highest", NaN in a padded
-   catalog, one row, and exact ties on both sides of a tile edge and at
-   the last valid column, which the lowest id must win);
+   catalog and its gradients, in "high", "default", "highest" and with a
+   NaN-padded catalog; B2's yardstick is autograd's backward replayed from
+   a CUDA graph, its eager time beside it), B5 fused_argmax and B6
+   fused_wargmax (the argmax over the catalog of one Q head, and of K = 3
+   heads' weighted sum: max within 1e-5 of the twin's largest, ids equal
+   wherever the twin's two best differ by more; also "default" (B5),
+   "highest", NaN in a padded catalog, one row, and exact ties on both
+   sides of a tile edge and at the last valid column, which the lowest id
+   must win); B2, B5 and B6 launched twice on each input must agree bit
+   for bit;
 4. serving: gru4rec at the RetailRocket width (catalog 70852, E=H=64,
    T=10, one layer; random weights from a seed) answers 4 batches of 512
    seeded sessions through ``run.recommend.recommend_rows``. The launch
@@ -77,6 +81,15 @@ SOURCES = ("gru_fwd", "gru_bwd", "fused_ce", "fused_argmax")
 # B2's dW and db are also held on the columns that no row labels, where
 # only the softmax term lands (~1e-6 there against ~1e-2 at a label).
 KERNEL_TOL = 1e-5
+# In "default" B2 rounds dl itself to bf16 before the dW and dh products, a
+# step function: where the kernel's fp32 dl and the twin's (logits summed in
+# another order) fall on two sides of a bf16 rounding boundary, that entry
+# moves by one bf16 step. The off-label dW columns, sums of a few large terms,
+# show it at up to ~1e-3 of their largest entry between two correct orders
+# (tests/test_torch_fused_ce.py::test_default_off_label_dw_is_ill_conditioned),
+# so there they are held to one bf16 step, 2^-8, which a wrong softmax term
+# (off by O(1)) still fails.
+DEFAULT_OFF_LABEL_TOL = 2.0**-8
 SHAPE_KEYS = ("B", "T", "H", "F", "A", "K", "valid", "masked", "reverse", "precision")
 
 GAP = 1e-5  # ids are compared where adjacent top-k values differ by more
@@ -86,13 +99,15 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def graph_ms(fn, n):
-    """Device time per call: ``n`` calls captured in one CUDA graph,
-    replayed 5 times after a warm-up; median replay / n."""
-    fn()
+def graph_ms(fn, n, stream=None):
+    """Device time per call: ``n`` calls captured in one CUDA graph (on
+    ``stream`` if given), replayed 5 times after a warm-up; median replay /
+    n."""
+    with torch.cuda.stream(stream or torch.cuda.current_stream()):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for _ in range(n):
             fn()
     graph.replay()
@@ -365,6 +380,7 @@ def kernels_fused_ce():
     rows = {}
     for B, Fd, A, valid, precision in [
         (256, 64, 70852, 70852, "high"),  # the train point
+        (256, 64, 70852, 70852, "default"),
         (256, 64, 70852, 70852, "highest"),
         (256, 64, 70912, 70852, "high"),  # padded to 554 x 128, NaN in the pad
     ]:
@@ -396,34 +412,54 @@ def kernels_fused_ce():
             return fused_ce_bwd_plain(h, w, b, labels, lse, ct, valid, precision)
 
         got_b = bwd()
+        again = bwd()
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got_b, again)):
+            fail(f"fused_ce_bwd at {shape}: two launches differ")
         want_b = bwd_plain()
         rel_b = check_close(got_b, want_b, ("dh", "dw", "db"), f"fused_ce_bwd at {shape}")
         off = torch.arange(A, device="cuda") < valid  # valid columns no row labels
         off[labels] = False
+        rel_b.update(check_close((got_b[2][off],), (want_b[2][off],), ("db off-label",),
+                                 f"fused_ce_bwd at {shape}"))
         rel_b.update(check_close(
-            (got_b[1][:, off], got_b[2][off]), (want_b[1][:, off], want_b[2][off]),
-            ("dw off-label", "db off-label"), f"fused_ce_bwd at {shape}"))
+            (got_b[1][:, off],), (want_b[1][:, off],), ("dw off-label",),
+            f"fused_ce_bwd at {shape}",
+            DEFAULT_OFF_LABEL_TOL if precision == "default" else KERNEL_TOL))
         if not ((got_b[1][:, valid:] == 0).all() and (got_b[2][valid:] == 0).all()):
             fail(f"fused_ce_bwd at {shape}: padded columns got a gradient")
 
-        # yardsticks: one dense fp32 head product and torch's CE, and its backward
+        # yardsticks: one dense fp32 head product and torch's CE, and its
+        # backward: autograd's, replayed from a CUDA graph captured on the
+        # stream its forward ran on, where its backward runs (and eager)
         wv, bv = w[:, :valid].contiguous(), b[:valid].contiguous()
         lib_fwd = graph_ms(lambda: F.cross_entropy(
             torch.addmm(bv, h, wv), labels, reduction="none"), 20)
-        leaves = [t.clone().requires_grad_() for t in (h, wv, bv)]
-        loss = F.cross_entropy(torch.addmm(leaves[2], leaves[0], leaves[1]), labels,
-                               reduction="none")
-        lib_bwd = eager_ms(lambda: torch.autograd.grad(loss, leaves, ct, retain_graph=True), 20)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            leaves = [t.clone().requires_grad_() for t in (h, wv, bv)]
+            loss = F.cross_entropy(torch.addmm(leaves[2], leaves[0], leaves[1]), labels,
+                                   reduction="none")
 
-        for name, fn, plain, ref, errs, lib, backward in (
-            ("B1 fused_ce_fwd", fwd, fwd_plain, (got, want), rel, lib_fwd, False),
-            ("B2 fused_ce_bwd", bwd, bwd_plain, (got_b, want_b), rel_b, lib_bwd, True),
+        def lib_grad():
+            return torch.autograd.grad(loss, leaves, ct, retain_graph=True)
+
+        lib_bwd = graph_ms(lib_grad, 20, stream=side)
+        with torch.cuda.stream(side):
+            lib_bwd_call = eager_ms(lib_grad, 20)
+
+        for name, fn, plain, ref, errs, lib, lib_call, backward in (
+            ("B1 fused_ce_fwd", fwd, fwd_plain, (got, want), rel, lib_fwd, None, False),
+            ("B2 fused_ce_bwd", bwd, bwd_plain, (got_b, want_b), rel_b, lib_bwd, lib_bwd_call,
+             True),
         ):
             bound_ms, bound_by = ce_bound(B, Fd, A, valid, precision, backward)
             row = dict(shape, max_abs_err=max_err(*ref), rel_err=errs, ms=graph_ms(fn, 20),
                        call_ms=eager_ms(fn, 20), plain_ms=graph_ms(plain, 3),
                        library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
+            if lib_call is not None:
+                row["library_call_ms"] = lib_call
             print(f"[kernels] {name} {json.dumps(row)}")
             rows.setdefault(name, row)
     return rows
@@ -471,6 +507,7 @@ def kernels_fused_argmax():
     for name, B, Fd, A, valid, K, precision, integer in [
         ("B5 fused_argmax", 256, 64, 70852, 70852, None, "high", False),  # the sqn point
         ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "high", False),  # the smorl point
+        ("B5 fused_argmax", 256, 64, 70852, 70852, None, "default", False),
         ("B5 fused_argmax", 256, 64, 70852, 70852, None, "highest", False),
         ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "highest", False),
         ("B5 fused_argmax", 256, 64, 70912, 70852, None, "high", False),  # NaN in the pad
@@ -494,7 +531,10 @@ def kernels_fused_argmax():
             return v.argmax(dim=1), v.amax(dim=1)
 
         idx, mx = kernel()
+        again = kernel()
         torch.cuda.synchronize()
+        if not (torch.equal(idx, again[0]) and torch.equal(mx, again[1])):
+            fail(f"{name} at {shape}: two launches differ")
         v = head_values_plain(h, w, b, valid, precision, q)
         idx_p, mx_p = v.argmax(dim=1), v.amax(dim=1)
         top2 = v.topk(2, dim=1).values
@@ -1065,6 +1105,8 @@ def main():
             "library": library,
             "shape": {k: row[k] for k in SHAPE_KEYS if k in row},
         }
+        if "library_call_ms" in row:
+            entry["library_call_ms"] = row["library_call_ms"]
         if name == "B3 gru_fwd":
             serving = rows["B3 serving"]
             entry.update(serving_ms=serving["ms"], serving_bound_ms=serving["bound_ms"])

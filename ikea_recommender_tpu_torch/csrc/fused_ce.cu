@@ -14,48 +14,73 @@
 // Layouts, all contiguous: h (B, F), W (F, A), b (A), labels (B) int64,
 // lse, g, ct (B), dW (F, A), db (A), dh (B, F), all fp32.
 //
-// Precision of the three products, as _dot/_dot3 of the TPU kernels: see
-// head_tile.cuh ("highest" fp32 FMA, "high" the bf16x3 split, "default" one
-// bf16 pass). Every product runs on the CUDA cores here; moving "high" and
-// "default" onto bf16 tensor cores is later work, so until then "high" does
-// three times the FMAs of "highest" and is slower.
+// Precision of the three products, as _dot/_dot3 of the TPU kernels
+// ("highest" fp32, "high" the bf16x3 split, "default" one bf16 pass). B1,
+// and B2 in "highest", run them on the CUDA cores (head_tile.cuh: fp32 FMAs,
+// three per multiply-accumulate in "high"). B2 in "high" and "default" runs
+// them on the bf16 tensor cores (mma_tile.cuh: mma.sync.m16n8k16 from
+// ldmatrix, each operand split once as it is staged).
 //
 // What bounds it: at the train point (B=256, F=64, A=70852) B1 reads W once
 // (18.1 MB) and does 2.32 GFLOP per pass, B2 reads W and writes dW (36 MB)
-// and does three such products. On the card's fp32 CUDA-core rate
-// (67 TFLOP/s) both are bound by operations: ~0.035 ms and ~0.104 ms. With
-// bf16 tensor cores (989 TFLOP/s) "high" would be ~0.007 and ~0.021 ms.
+// and does three such products, plus 18.1 M expf. On bf16 tensor cores
+// (989 TFLOP/s) "high" is bound by operations: 0.0070 ms for B1, 0.0211 ms
+// for B2. B1 sits on the 67 TFLOP/s fp32 CUDA cores, 35x above its bound;
+// moving it onto the tensor-core tile is the next kernel work. "highest" is
+// bound at 0.035 ms (B1) and 0.104 ms (B2) on the CUDA cores.
 //
 // B1 design: the TPU walks column blocks in order and carries the running
 // (max, sum-exp, label logit) from one grid step to the next. Here each
 // block owns 128 columns x 64 rows, computes its logits tile in registers
 // (head_tile.cuh: a 4 x 8 tile per thread, K in chunks of 16 through shared
-// memory; B5 and B6 share it), and
+// memory; B6 shares it), and
 // writes per-row partials (m, s, g) of its columns; a second kernel merges
 // them per row: m = max m_i, s = sum s_i exp(m_i - m), g = sum g_i,
 // lse = m + log s. The -1e30 sentinel is finite, never -inf, so a block
 // whose columns are all masked gives m_i = -1e30 and vanishes in the merge.
 //
 // B2 design: one block per SM, each walking a strided set of 64-column
-// chunks. For a chunk it keeps W's columns (tail zeroed) and the dW and db
-// accumulators in shared memory and loops over all rows in tiles of 32,
-// recomputing each logits tile, so dW and db of its columns are summed by
-// this block alone: no atomics. dh is a sum over all column chunks: each
-// block accumulates its own (B, F) part in shared memory and writes it once;
-// a second kernel sums the parts in a fixed order, so dh is the same from
-// run to run. Where (B, F) does not fit next to the tiles, the rows go in
-// groups, one launch each, adding into dW and db.
+// chunks, so dW and db of a chunk's columns are summed by one block alone:
+// no atomics. dh is a sum over all column chunks: each block accumulates
+// its own (B, F) part in shared memory and writes it once; a second kernel
+// sums the parts in block order, so dh, dW and db are the same from run to
+// run. Where (B, F) does not fit next to the tiles, the rows go in groups,
+// one launch each, adding into dW and db. W's columns >= valid_dim are
+// zeroed as the chunk is staged, before any product, and nothing past A is
+// read.
+// - "highest" (ce_bwd_kernel): the chunk's W and the dW and db
+//   accumulators in shared memory, rows in tiles of 32, the three products
+//   as fp32 FMAs from padded shared-memory tiles.
+// - "high" and "default" (ce_bwd_mma_kernel): h's rows are split into bf16
+//   planes once per block. A chunk's W is fetched with cp.async into a
+//   staging buffer while the block computes the chunk before it (16 bytes
+//   a copy when A % 4 == 0, else 4), then split into planes. Per tile of 64
+//   rows: the logits (mma), dl = (exp(l + b - lse) - onehot) ct in
+//   registers, db by shuffles and a fixed-order sum over the warps, dl's
+//   planes to shared memory; dW += h^T dl (accumulators in registers for
+//   the whole chunk); dh += dl W^T into the fp32 accumulator, each entry
+//   owned by one thread, its rows 8 mod 32 words apart so the float2
+//   updates meet no bank conflict. "high"'s cross passes go to their own
+//   fragments, added once per k loop. With 64-column chunks, 1108 of them
+//   at the train point over 132 blocks: 8 or 9 chunks a block, one block
+//   (eight warps, 237 registers a thread) an SM. It sits ~9x above its
+//   bound: a tile costs each warp ~100 ldmatrix.x4 for 240 mma and two
+//   barriers, so by count shared memory's bandwidth and the barriers, not
+//   the tensor cores, set its pace (no profiler of the SM's pipes here).
 
 #include <cuda_runtime.h>
 
 #include "head_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
 using namespace head_tile;
+using mma_tile::allow_smem;
+using mma_tile::kMaxDevices;
+using mma_tile::kMaxSmem;
 
 constexpr int kThreads = 256;
-constexpr size_t kMaxSmem = 232448;
 static_assert(kThreads == kTileThreads, "B1 runs the shared logits tile");
 
 // ---------------------------------------------------------------------------
@@ -154,43 +179,32 @@ struct BwdLayout {
   size_t fixed;    // floats besides the dh accumulator
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int F, int P) {
+__host__ __device__ inline BwdLayout bwd_layout(int F) {
   BwdLayout L;
   L.wp = kBwdCols + 1;
   L.hp = F + 1;
   L.dp = kBwdCols + 1;
-  const int parts = P == 1 ? 2 : 1;  // hi (and lo) copies of W and h
-  L.fixed = (size_t)parts * F * L.wp + (size_t)parts * kBwdRows * L.hp +
-            (size_t)(1 + parts) * kBwdRows * L.dp  // dl, its hi (and lo)
-            + (size_t)F * kBwdCols + kBwdCols;     // dW and db accumulators
+  L.fixed = (size_t)F * L.wp + (size_t)kBwdRows * L.hp + (size_t)kBwdRows * L.dp +
+            (size_t)F * kBwdCols + kBwdCols;  // W, h, dl; the dW and db accumulators
   return L;
 }
 
-template <int P>
+// "highest": every product an fp32 FMA on the CUDA cores.
 __global__ void __launch_bounds__(kThreads)
 ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const float* __restrict__ bias, const long long* __restrict__ labels,
               const float* __restrict__ lse, const float* __restrict__ ct,
               float* __restrict__ dw, float* __restrict__ db, float* __restrict__ dh_part,
               int B, int F, int A, int valid, int g0, int g1, int accumulate) {
-  constexpr bool LO = P == 1;
   extern __shared__ float smem[];
-  const BwdLayout L = bwd_layout(F, P);
+  const BwdLayout L = bwd_layout(F);
   float* p = smem;
-  float* w_hi = p;  // (F, wp) W's chunk, columns >= valid zeroed
+  float* w_s = p;  // (F, wp) W's chunk, columns >= valid zeroed
   p += F * L.wp;
-  float* w_lo = p;
-  if (LO) p += F * L.wp;
-  float* h_hi = p;  // (kBwdRows, hp)
+  float* h_s = p;  // (kBwdRows, hp)
   p += kBwdRows * L.hp;
-  float* h_lo = p;
-  if (LO) p += kBwdRows * L.hp;
-  float* dl = p;  // (kBwdRows, dp) dlogits, fp32
+  float* dl = p;  // (kBwdRows, dp) dlogits
   p += kBwdRows * L.dp;
-  float* dl_hi = P == 0 ? dl : p;
-  if (P != 0) p += kBwdRows * L.dp;
-  float* dl_lo = p;
-  if (LO) p += kBwdRows * L.dp;
   float* dw_s = p;  // (F, kBwdCols)
   p += F * kBwdCols;
   float* db_s = p;  // (kBwdCols)
@@ -205,11 +219,7 @@ ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
     const int n0 = chunk * kBwdCols;
     for (int e = tid; e < F * kBwdCols; e += kThreads) {
       const int k = e / kBwdCols, c = e % kBwdCols;
-      const float x = n0 + c < valid ? w[(size_t)k * A + n0 + c] : 0.0f;
-      float hi, lo;
-      split<P>(x, hi, lo);
-      w_hi[k * L.wp + c] = hi;
-      if constexpr (LO) w_lo[k * L.wp + c] = lo;
+      w_s[k * L.wp + c] = n0 + c < valid ? w[(size_t)k * A + n0 + c] : 0.0f;
       dw_s[e] = 0.0f;
     }
     for (int c = tid; c < kBwdCols; c += kThreads) db_s[c] = 0.0f;
@@ -218,11 +228,7 @@ ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
       __syncthreads();  // the previous tile's readers are done
       for (int e = tid; e < kBwdRows * F; e += kThreads) {
         const int r = e / F, k = e % F;
-        const float x = r0 + r < g1 ? h[(size_t)(r0 + r) * F + k] : 0.0f;
-        float hi, lo;
-        split<P>(x, hi, lo);
-        h_hi[r * L.hp + k] = hi;
-        if constexpr (LO) h_lo[r * L.hp + k] = lo;
+        h_s[r * L.hp + k] = r0 + r < g1 ? h[(size_t)(r0 + r) * F + k] : 0.0f;
       }
       __syncthreads();
 
@@ -233,21 +239,15 @@ ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
       for (int k = 0; k < F; ++k) {
-        float ahi[2], alo[2], bhi[4], blo[4];
+        float a[2], b[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          ahi[i] = h_hi[(ty + 16 * i) * L.hp + k];
-          alo[i] = LO ? h_lo[(ty + 16 * i) * L.hp + k] : 0.0f;
-        }
+        for (int i = 0; i < 2; ++i) a[i] = h_s[(ty + 16 * i) * L.hp + k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bhi[j] = w_hi[k * L.wp + tx + 16 * j];
-          blo[j] = LO ? w_lo[k * L.wp + tx + 16 * j] : 0.0f;
-        }
+        for (int j = 0; j < 4; ++j) b[j] = w_s[k * L.wp + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = mac<P>(ahi[i], alo[i], bhi[j], blo[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -265,12 +265,6 @@ ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
             d = (pr - (col == lbl ? 1.0f : 0.0f)) * row_ct;
           }
           dl[r * L.dp + c] = d;
-          if constexpr (P != 0) {
-            float hi, lo;
-            split<P>(d, hi, lo);
-            dl_hi[r * L.dp + c] = hi;
-            if constexpr (LO) dl_lo[r * L.dp + c] = lo;
-          }
         }
       }
       __syncthreads();
@@ -284,14 +278,12 @@ ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
           for (int j = 0; j < 4; ++j) a[i][j] = 0.0f;
         const int fa = min(f0 + ty, F - 1), fb = min(f0 + ty + 16, F - 1);
         for (int r = 0; r < kBwdRows; ++r) {
-          const float ahi[2] = {h_hi[r * L.hp + fa], h_hi[r * L.hp + fb]};
-          const float alo[2] = {LO ? h_lo[r * L.hp + fa] : 0.0f, LO ? h_lo[r * L.hp + fb] : 0.0f};
+          const float hv[2] = {h_s[r * L.hp + fa], h_s[r * L.hp + fb]};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const float bhi = dl_hi[r * L.dp + tx + 16 * j];
-            const float blo = LO ? dl_lo[r * L.dp + tx + 16 * j] : 0.0f;
+            const float dv = dl[r * L.dp + tx + 16 * j];
 #pragma unroll
-            for (int i = 0; i < 2; ++i) a[i][j] = mac<P>(ahi[i], alo[i], bhi, blo, a[i][j]);
+            for (int i = 0; i < 2; ++i) a[i][j] = fmaf(hv[i], dv, a[i][j]);
           }
         }
 #pragma unroll
@@ -320,18 +312,14 @@ ce_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 4; ++j) fj[j] = min(f0 + tx + 16 * j, F - 1);
         for (int c = 0; c < kBwdCols; ++c) {
-          float ahi[2], alo[2];
+          float dv[2];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            ahi[i] = dl_hi[(ty + 16 * i) * L.dp + c];
-            alo[i] = LO ? dl_lo[(ty + 16 * i) * L.dp + c] : 0.0f;
-          }
+          for (int i = 0; i < 2; ++i) dv[i] = dl[(ty + 16 * i) * L.dp + c];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const float bhi = w_hi[fj[j] * L.wp + c];
-            const float blo = LO ? w_lo[fj[j] * L.wp + c] : 0.0f;
+            const float wv = w_s[fj[j] * L.wp + c];
 #pragma unroll
-            for (int i = 0; i < 2; ++i) a[i][j] = mac<P>(ahi[i], alo[i], bhi, blo, a[i][j]);
+            for (int i = 0; i < 2; ++i) a[i][j] = fmaf(dv[i], wv, a[i][j]);
           }
         }
 #pragma unroll
@@ -380,6 +368,262 @@ ce_dh_sum_kernel(const float* __restrict__ dh_part, float* __restrict__ dh, int 
   dh[i] = a;
 }
 
+// ---------------------------------------------------------------------------
+// B2 in "high" and "default": the same chunk ownership, on the bf16 tensor
+// cores (mma_tile.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 64;          // rows of a tile
+constexpr int kMmaLd = kBwdCols + 8;  // row stride of the W and dl planes
+
+// Row stride of the dh accumulator: at least F padded to 16, and 8 mod 32
+// words, so the float2 updates of a half-warp (rows g, columns 2 q) fall on
+// 32 distinct banks.
+__host__ __device__ inline int dh_ld(int F) {
+  const int fp = (F + 15) / 16 * 16;
+  return fp + (40 - fp % 32) % 32;
+}
+
+// Bytes of shared memory of ce_bwd_mma_kernel for `rows` rows of h and dh:
+// W's chunk staged in fp32, W's and dl's bf16 planes, h's planes (rows
+// padded to a tile), db per warp row and per chunk, the dh accumulator.
+__host__ __device__ inline size_t bwd_mma_smem(int F, int P, int rows) {
+  const size_t fp = (F + 15) / 16 * 16, planes = P == 1 ? 2 : 1;
+  const size_t rows_pad = (rows + kMmaRows - 1) / kMmaRows * kMmaRows;
+  return 4 * (size_t)F * kBwdCols + 2 * planes * (fp + kMmaRows) * kMmaLd +
+         2 * planes * rows_pad * (fp + 8) + 4 * 5 * kBwdCols + 4 * (size_t)rows * dh_ld(F);
+}
+
+// Eight warps; warp (wr, wc) = (warp % 4, warp / 4). Per tile of 64 rows it
+// computes the logits of rows 16 wr.. at columns 32 wc.., then dW of the
+// f blocks wc + 2 j (j < 4) at columns 16 wr.., and dh of rows 16 wr.. at
+// those f blocks (a block is 16 of F padded to a multiple of 16).
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+ce_bwd_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ bias, const long long* __restrict__ labels,
+                  const float* __restrict__ lse, const float* __restrict__ ct,
+                  float* __restrict__ dw, float* __restrict__ db, float* __restrict__ dh_part,
+                  int B, int F, int A, int valid, int g0, int g1, int accumulate, int vec) {
+  using namespace mma_tile;
+  constexpr bool LO = P == 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int fp = (F + 15) / 16 * 16, nfb = fp / 16;
+  const int rows = g1 - g0, rows_pad = (rows + kMmaRows - 1) / kMmaRows * kMmaRows;
+  unsigned char* p = smem_raw;
+  auto take = [&](size_t bytes) {
+    unsigned char* q = p;
+    p += bytes;
+    return q;
+  };
+  auto planes = [&](int n_rows, int ld) {
+    Planes s{reinterpret_cast<bf16*>(take(2 * (size_t)n_rows * ld)), nullptr, ld};
+    if (LO) s.lo = reinterpret_cast<bf16*>(take(2 * (size_t)n_rows * ld));
+    return s;
+  };
+  float* stage = reinterpret_cast<float*>(take(4 * (size_t)F * kBwdCols));  // (F, kBwdCols)
+  const Planes ws = planes(fp, kMmaLd);       // W's chunk (fp, kBwdCols), columns >= valid 0
+  const Planes ls = planes(kMmaRows, kMmaLd);  // dl of the tile (kMmaRows, kBwdCols)
+  const Planes hs = planes(rows_pad, fp + 8);  // h's rows g0..g1 (rows_pad, fp)
+  float* db_part = reinterpret_cast<float*>(take(4 * 4 * kBwdCols));  // (4, kBwdCols)
+  float* db_s = reinterpret_cast<float*>(take(4 * kBwdCols));
+  float* dh_s = reinterpret_cast<float*>(p);  // (rows, ldd)
+  const int ldd = dh_ld(F);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+  const int n_chunks = (A + kBwdCols - 1) / kBwdCols;
+
+  // W's columns of a chunk into the staging buffer, in flight while the
+  // block computes the chunk before it
+  auto fetch = [&](int chunk) {
+    fetch_cols<kBwdCols, kThreads>(stage, w, F, A, chunk * kBwdCols, vec);
+  };
+
+  if ((int)blockIdx.x < n_chunks) fetch(blockIdx.x);
+  // h's rows, split once for all chunks, while the first chunk is in flight
+#pragma unroll 4
+  for (int e = tid; e < rows_pad * fp / 2; e += kThreads) {
+    const int r = e / (fp / 2), k = 2 * (e % (fp / 2));
+    float x0 = 0.0f, x1 = 0.0f;
+    if (r < rows) {
+      const float* src = h + (size_t)(g0 + r) * F;
+      x0 = k < F ? src[k] : 0.0f;
+      x1 = k + 1 < F ? src[k + 1] : 0.0f;
+    }
+    store_split2<P>(hs, r * hs.ld + k, x0, x1);
+  }
+  for (int i = tid; i < rows * ldd; i += kThreads) dh_s[i] = 0.0f;
+
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int n0 = chunk * kBwdCols;
+    cp_async_wait<0>();
+    __syncthreads();  // the chunk has landed; the previous chunk's readers are done
+    split_cols<P, kBwdCols, kThreads>(ws, stage, F, fp, n0, valid);
+    if (tid < kBwdCols) db_s[tid] = 0.0f;
+    __syncthreads();  // W's planes are ready and the staging buffer is free
+    if (chunk + (int)gridDim.x < n_chunks) fetch(chunk + gridDim.x);
+
+    // this thread's logit columns: 16 (2 wc + i) + 8 t + 2 q + e
+    float bcol[2][2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 16 * (2 * wc + i) + 8 * t + 2 * q + e;
+          bcol[i][t][e] = col < valid ? bias[col] : 0.0f;
+        }
+    float dwa[4][2][4] = {};  // dW at f block wc + 2 j, columns 16 wr..
+
+    for (int r0 = 0; r0 < rows; r0 += kMmaRows) {
+      // logits at rows 16 wr.., columns 16 (2 wc + i)..; the cross passes
+      // of "high" apart in sx, added once (mma_tile.cuh)
+      float s[2][2][4] = {}, sx[2][2][4] = {};
+      for (int k0 = 0; k0 < fp; k0 += 16) {
+        Frag a;
+        load_a<P>(a, hs, r0 + 16 * wr, k0);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          Frag b;
+          load_b<P>(b, ws, k0, 16 * (2 * wc + i));
+          mma_pair<P>(s[i], sx[i], a, b);
+        }
+      }
+      fold<P>(s, sx);
+
+      // dl = (exp(l - lse) - onehot) ct at the valid columns of live rows,
+      // into dl's planes; colsum[i][t][e] = its sum over the thread's 2 rows
+      float colsum[2][2][2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8 of the warp's 16
+        const int lr = 16 * wr + g + 8 * hr, row = g0 + r0 + lr;
+        const bool live = r0 + lr < rows;
+        const float row_lse = live ? lse[row] : 0.0f;
+        const float row_ct = live ? ct[row] : 0.0f;
+        const long long lbl = live ? labels[row] : -1;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int c = 16 * (2 * wc + i) + 8 * t + 2 * q;
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = n0 + c + e;
+              d[e] = 0.0f;
+              if (live && col < valid) {
+                const float pr = expf(s[i][t][2 * hr + e] + bcol[i][t][e] - row_lse);
+                d[e] = (pr - (col == lbl ? 1.0f : 0.0f)) * row_ct;
+              }
+              colsum[i][t][e] = hr == 0 ? d[e] : colsum[i][t][e] + d[e];
+            }
+            store_split2<P>(ls, lr * ls.ld + c, d[0], d[1]);
+          }
+      }
+      // db: column sums over the warp's 16 rows in a fixed shuffle order,
+      // then over the 4 warp rows in order
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = colsum[i][t][e];
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+            if (g == 0) db_part[wr * kBwdCols + 16 * (2 * wc + i) + 8 * t + 2 * q + e] = v;
+          }
+      __syncthreads();  // dl's planes and the db parts are complete
+      if (tid < kBwdCols)
+        db_s[tid] += ((db_part[tid] + db_part[kBwdCols + tid]) + db_part[2 * kBwdCols + tid]) +
+                     db_part[3 * kBwdCols + tid];
+
+      // dW += h^T dl over the tile's rows
+      float dwx[4][2][4] = {};
+#pragma unroll
+      for (int k0 = 0; k0 < kMmaRows; k0 += 16) {
+        Frag b;
+        load_b<P>(b, ls, k0, 16 * wr);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int fb = wc + 2 * j;
+          if (fb < nfb) {
+            Frag a;
+            load_a_trans<P>(a, hs, r0 + k0, 16 * fb);
+            mma_pair<P>(dwa[j], dwx[j], a, b);
+          }
+        }
+      }
+      fold<P>(dwa, dwx);
+
+      // dh += dl W^T over the chunk's columns, into the accumulator
+      float dha[4][2][4] = {}, dhx[4][2][4] = {};
+#pragma unroll
+      for (int k0 = 0; k0 < kBwdCols; k0 += 16) {
+        Frag a;
+        load_a<P>(a, ls, 16 * wr, k0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int fb = wc + 2 * j;
+          if (fb < nfb) {
+            Frag b;
+            load_b_trans<P>(b, ws, 16 * fb, k0);
+            mma_pair<P>(dha[j], dhx[j], a, b);
+          }
+        }
+      }
+      fold<P>(dha, dhx);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = r0 + 16 * wr + g + 8 * hr;
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int f = 16 * (wc + 2 * j) + 8 * t + 2 * q;
+            if (r < rows && f < fp) {  // columns F..fp of W's planes are 0
+              float2* acc = reinterpret_cast<float2*>(dh_s + r * ldd + f);
+              float2 v = *acc;
+              v.x += dha[j][t][2 * hr];
+              v.y += dha[j][t][2 * hr + 1];
+              *acc = v;
+            }
+          }
+        }
+      __syncthreads();  // before the next tile overwrites dl and the db parts
+    }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int f = 16 * (wc + 2 * j) + g + 8 * hr;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + 16 * wr + 8 * t + 2 * q + e;
+            if (f < F && col < A) {
+              const float v = col < valid ? dwa[j][t][2 * hr + e] : 0.0f;
+              float* out = dw + (size_t)f * A + col;
+              *out = accumulate ? *out + v : v;
+            }
+          }
+      }
+    if (tid < kBwdCols && n0 + tid < A) {
+      const int col = n0 + tid;
+      const float v = col < valid ? db_s[tid] : 0.0f;
+      db[col] = accumulate ? db[col] + v : v;
+    }
+  }
+  __syncthreads();
+  float* out = dh_part + (size_t)blockIdx.x * B * F;
+  for (int i = tid; i < rows * F; i += kThreads)
+    out[(size_t)g0 * F + i] = dh_s[i / F * ldd + i % F];
+}
+
 int bwd_blocks(int A) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -389,46 +633,51 @@ int bwd_blocks(int A) {
   return n_chunks < sms ? n_chunks : sms;
 }
 
-// Rows per launch: as many as let the (rows, F) dh accumulator fit.
-int bwd_group_rows(int B, int F, int P) {
-  const size_t fixed = bwd_layout(F, P).fixed * sizeof(float);
+// Rows per launch of ce_bwd_mma_kernel: whole tiles, as many as fit.
+int bwd_mma_group_rows(int B, int F, int P) {
+  const size_t fixed = bwd_mma_smem(F, P, 0), tile = bwd_mma_smem(F, P, kMmaRows) - fixed;
+  if (fixed + tile > kMaxSmem) return 0;
+  const size_t rows = (kMaxSmem - fixed) / tile * kMmaRows;
+  return (int)(rows < (size_t)B ? rows : B);
+}
+
+// Rows per launch of ce_bwd_kernel: as many as let the (rows, F) dh
+// accumulator fit.
+int bwd_group_rows(int B, int F) {
+  const size_t fixed = bwd_layout(F).fixed * sizeof(float);
   if (fixed >= kMaxSmem) return 0;
   size_t rows = (kMaxSmem - fixed) / (sizeof(float) * F);
   rows = rows / kBwdRows * kBwdRows;
   return (int)(rows < (size_t)B ? rows : B);
 }
 
-cudaError_t allow_smem(const void* kernel, size_t smem, size_t* allowed) {
-  if (smem <= 48 * 1024 || *allowed >= smem) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err == cudaSuccess) *allowed = smem;
-  return err;
-}
-
+// "highest" (P == 0) runs ce_bwd_kernel on the CUDA cores, "high" and
+// "default" ce_bwd_mma_kernel on the tensor cores.
 template <int P>
 cudaError_t launch_bwd(const float* h, const float* w, const float* b, const long long* labels,
                        const float* lse, const float* ct, float* dw, float* db, float* dh,
                        float* dh_part, int B, int F, int A, int valid, cudaStream_t st) {
-  // Raise the dynamic shared-memory limit once per device and instantiation.
-  constexpr int kMaxDevices = 64;
-  static size_t allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  size_t scratch = 0;
-  size_t* allow = dev < kMaxDevices ? &allowed[dev] : &scratch;
-
+  static size_t allowed[kMaxDevices] = {};  // per instantiation: one kernel
+  cudaError_t err = cudaSuccess;
   const int nblk = bwd_blocks(A);
-  const int rows = bwd_group_rows(B, F, P);
+  const int rows = P == 0 ? bwd_group_rows(B, F) : bwd_mma_group_rows(B, F, P);
   if (rows < 1) return cudaErrorInvalidValue;
+  const int vec = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   for (int g0 = 0; g0 < B; g0 += rows) {
     const int g1 = g0 + rows < B ? g0 + rows : B;
-    const size_t smem = (bwd_layout(F, P).fixed + (size_t)(g1 - g0) * F) * sizeof(float);
-    err = allow_smem((const void*)ce_bwd_kernel<P>, smem, allow);
-    if (err != cudaSuccess) return err;
-    ce_bwd_kernel<P><<<nblk, kThreads, smem, st>>>(h, w, b, labels, lse, ct, dw, db, dh_part, B,
-                                                   F, A, valid, g0, g1, g0 > 0);
+    if constexpr (P == 0) {
+      const size_t smem = (bwd_layout(F).fixed + (size_t)(g1 - g0) * F) * sizeof(float);
+      err = allow_smem((const void*)ce_bwd_kernel, smem, allowed);
+      if (err != cudaSuccess) return err;
+      ce_bwd_kernel<<<nblk, kThreads, smem, st>>>(h, w, b, labels, lse, ct, dw, db, dh_part, B, F,
+                                                  A, valid, g0, g1, g0 > 0);
+    } else {
+      const size_t smem = bwd_mma_smem(F, P, g1 - g0);
+      err = allow_smem((const void*)ce_bwd_mma_kernel<P>, smem, allowed);
+      if (err != cudaSuccess) return err;
+      ce_bwd_mma_kernel<P><<<nblk, kThreads, smem, st>>>(
+          h, w, b, labels, lse, ct, dw, db, dh_part, B, F, A, valid, g0, g1, g0 > 0, vec);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

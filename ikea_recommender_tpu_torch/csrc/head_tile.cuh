@@ -1,6 +1,8 @@
-// Device code shared by the head kernels (fused_ce.cu: B1, B2; fused_argmax.cu:
-// B5, B6): the named precisions of the TPU kernels' _dot/_dot3, and the
-// (64 rows x 128 columns) logits tile that B1, B5 and B6 compute.
+// The CUDA-core tile of the head kernels: the named precisions of the TPU
+// kernels' _dot/_dot3 as fp32 FMAs, and the (64 rows x 128 columns) logits
+// tile. It serves B1 (fused_ce.cu) and B6 (fused_argmax.cu) at every
+// precision, and B2 and B5 in "highest". B2 and B5 in "high" and "default"
+// run on the bf16 tensor cores instead (mma_tile.cuh).
 //
 // Precision P of a product, as ikea_recommender_tpu/ops/fused_ce.py::_dot:
 //   0 "highest": fp32 FMA.
@@ -9,7 +11,10 @@
 //     two bf16 values is exact in fp32, so this is the TPU's bf16x3 function
 //     up to the order of the sums.
 //   2 "default": bf16(a) * bf16(b) summed in fp32.
-// All of it runs on the CUDA cores; bf16 tensor cores are later work.
+// Here "high" costs three FMAs per multiply-accumulate on the 67 TFLOP/s
+// fp32 CUDA cores, so B1 and B6 sit 35-40x above their tensor-core bounds
+// (fused_ce.cu, fused_argmax.cu); they are the next to move onto
+// mma_tile.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -50,6 +50,11 @@ _NEG = -1e30
 LAUNCHES = 0  # B5, fused_linear_argmax
 WEIGHTED_LAUNCHES = 0  # B6, fused_weighted_multihead_argmax
 
+# B5 in "high" and "default" keeps W's 128 columns (staged in fp32, then as
+# bf16 planes) and a tile of h in shared memory: 171008 bytes at F = 128 in
+# "high", of the 232448 a block may hold. It takes F up to this, as B2 does.
+MAX_MMA_FEATURES = 128
+
 _FNS = None
 
 _ACTION_MAJOR = (
@@ -156,6 +161,11 @@ def _launch(h, w, b, q_weights, valid_dim, precision):
             raise ValueError("fused argmax takes contiguous inputs on CUDA")
     (B, F), A = h.shape, w.shape[-1]
     K = 1 if q_weights is None else q_weights.shape[0]
+    if q_weights is None and precision != "highest" and F > MAX_MMA_FEATURES:
+        raise ValueError(
+            f"the fused_argmax tensor-core kernel takes F <= {MAX_MMA_FEATURES} in "
+            f"{precision!r}, got F={F}"
+        )
     fn, scratch = _kernel_fns()
     dev = h.device
     idx = torch.empty((B,), dtype=torch.int64, device=dev)

@@ -152,3 +152,52 @@ def test_wrapper_rejects_bad_inputs():
         fused_softmax_ce(h, w, b[:-1], labels, 32)
     with pytest.raises(ValueError, match="different devices"):
         fused_softmax_ce(h, w, b.to("meta"), labels, 32)
+
+
+def _bwd_logits_f64(h, w, b, labels, lse, ct, precision):
+    """B2's function with the logits' products summed in float64 (then
+    rounded to fp32): the same function as the twin, another order of sums."""
+    def split(x):
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+    def dot(a, c):
+        (ah, al), (ch, cl) = split(a), split(c)
+        out = ah.double() @ ch.double()
+        if precision == "high":
+            out += ah.double() @ cl.double() + al.double() @ ch.double()
+        return out.float()
+
+    logits = dot(h, w) + b
+    onehot = torch.nn.functional.one_hot(labels.long(), w.shape[1]).float()
+    dl = (torch.exp(logits - lse[:, None]) - onehot) * ct[:, None]
+    return dot(h.T.contiguous(), dl), dl.sum(dim=0)
+
+
+def test_default_off_label_dw_is_ill_conditioned():
+    """In "default" B2 rounds dl to bf16 before its products. Where two
+    correct orders of the logits' fp32 sums put an entry of dl on two sides
+    of a bf16 rounding boundary, it moves by one bf16 step, and the dW
+    columns that no row labels (sums of a few large terms) show that far
+    above 1e-5 of their largest entry, though below one bf16 step (2^-8).
+    In "high" the lo part takes up the step. This is why the card's gates
+    hold "default"'s off-label dW to 2^-8 at the train point."""
+    B, F, A = 128, 64, 20000
+    g = torch.Generator().manual_seed(A)
+    h = torch.randn(B, F, generator=g)
+    w = torch.randn(F, A, generator=g) / F**0.5
+    b = torch.randn(A, generator=g) * 0.1
+    labels = torch.randint(0, A, (B,), generator=g)
+    ct = torch.rand(B, generator=g) / B
+    off = torch.ones(A, dtype=torch.bool)
+    off[labels] = False
+    err = {}
+    for precision in ("high", "default"):
+        lse, _ = fused_ce_fwd_plain(h, w, b, labels, A, precision)
+        _, dw, db = fused_ce_bwd_plain(h, w, b, labels, lse, ct, A, precision)
+        dw64, db64 = _bwd_logits_f64(h, w, b, labels, lse, ct, precision)
+        for name, got, want in (("dw", dw64, dw), ("db", db64, db), ("dw off", dw64[:, off], dw[:, off])):
+            err[precision, name] = ((got - want).abs().max() / want.abs().max()).item()
+    assert err["high", "dw"] < 1e-5 and err["high", "dw off"] < 1e-5, err
+    assert err["default", "dw"] < 1e-5 and err["default", "db"] < 1e-5, err
+    assert 1e-5 < err["default", "dw off"] < 2.0**-8, err
