@@ -20,11 +20,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    a CUDA graph, its eager time beside it), B5 fused_argmax and B6
    fused_wargmax (the argmax over the catalog of one Q head, and of K = 3
    heads' weighted sum: max within 1e-5 of the twin's largest, ids equal
-   wherever the twin's two best differ by more; also "default" (B5),
+   wherever the twin's two best differ by more; also "default",
    "highest", NaN in a padded catalog, one row, and exact ties on both
    sides of a tile edge and at the last valid column, which the lowest id
-   must win); B2, B5 and B6 launched twice on each input must agree bit
-   for bit;
+   must win); B1, B2, B5 and B6 launched twice on each input must agree
+   bit for bit;
 4. serving: gru4rec at the RetailRocket width (catalog 70852, E=H=64,
    T=10, one layer; random weights from a seed) answers 4 batches of 512
    seeded sessions through ``run.recommend.recommend_rows``. The launch
@@ -400,7 +400,10 @@ def kernels_fused_ce():
             return fused_ce_fwd_plain(h, w, b, labels, valid, precision)
 
         got = fwd()
+        again = fwd()
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"fused_ce_fwd at {shape}: two launches differ")
         want = fwd_plain()
         rel = check_close(got, want, ("lse", "label logit"), f"fused_ce_fwd at {shape}")
         lse = want[0]
@@ -508,6 +511,7 @@ def kernels_fused_argmax():
         ("B5 fused_argmax", 256, 64, 70852, 70852, None, "high", False),  # the sqn point
         ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "high", False),  # the smorl point
         ("B5 fused_argmax", 256, 64, 70852, 70852, None, "default", False),
+        ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "default", False),
         ("B5 fused_argmax", 256, 64, 70852, 70852, None, "highest", False),
         ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "highest", False),
         ("B5 fused_argmax", 256, 64, 70912, 70852, None, "high", False),  # NaN in the pad

@@ -19,33 +19,44 @@
 // is read.
 //
 // Precision of the products: "highest" fp32, "high" bf16x3, "default" one
-// bf16 pass, as B1. B5 in "high" and "default" runs on the bf16 tensor
-// cores (mma_tile.cuh); B6, and B5 in "highest", on the CUDA cores
-// (head_tile.cuh: fp32 FMAs, three per multiply-accumulate in "high").
+// bf16 pass, as B1. In "high" and "default" both run on the bf16 tensor
+// cores (mma_tile.cuh's head walk, shared with B1) and take F <= 128 and,
+// for B6, K <= 5; "highest" runs on the CUDA cores (head_tile.cuh: fp32
+// FMAs) and takes any F and K.
 //
 // What bounds it: at the sqn train point (B=256, F=64, A=70852) B5 reads W
 // once (18.1 MB, 0.0054 ms at 3.35 TB/s) and does 2 B F A = 2.32 GFLOP per
 // pass; in "high" (three passes on bf16 tensor cores, 989 TFLOP/s) that is
 // 0.00704 ms, so operations bound it. B6 at smorl's K = 3 reads 54.4 MB and
-// does three times the operations: 0.0211 ms. B6 on the CUDA cores (67
-// TFLOP/s fp32) sits far above that; moving it onto the tensor-core tile is
-// the next kernel work. At B = 1 B5 is bound by W's bytes.
+// does three times the operations: 0.0211 ms. At B = 1 B5 is bound by W's
+// bytes.
 //
 // Design: the TPU walks column blocks in order, carrying a running (max,
 // argmax) from one grid step to the next with a strict > (earlier blocks win
-// ties) and the lowest id inside a block. Here each block owns 128 columns
-// and writes per row the (max, lowest column at the max) of its columns; a
-// merge kernel, one warp a row, keeps the larger max and, on equal maxima,
-// the lower column. That is the TPU kernel's rule in any order of blocks.
-// - B5 in "high" and "default" (argmax_mma_kernel): the block splits its
-//   128 columns of W into bf16 planes once (W is read from device memory
-//   once) and walks all of B in tiles of 64 rows of h (re-read from L2 by
-//   every block), each split as it is staged; per row tile the mma
-//   accumulators get the bias and the mask, then (max, lowest column) over
-//   the C fragment, the quad's shuffles and the two warps of a row.
-// - B6, and "highest" (argmax_tile_kernel): the block owns 64 rows x 128
-//   columns and computes its tile of v in registers (head_tile.cuh's
-//   logits tile, once per head for B6, summed into a second register tile).
+// ties) and the lowest id inside a block. Here each block owns a range of
+// columns and writes per row the (max, lowest column at the max) of its
+// columns; a merge kernel, one warp a row, keeps the larger max and, on
+// equal maxima, the lower column. That is the TPU kernel's rule in any
+// order of blocks.
+// - "high" and "default" (argmax_mma_kernel): the head walk splits the
+//   block's columns of W (all K heads for B6, so W is read from device
+//   memory once) into bf16 planes once and walks all of B in tiles of 64
+//   rows of h (re-read from L2 by every block), each split as it is staged.
+//   Per row tile the epilogue takes the C fragments: B5 adds the bias and
+//   the mask; B6 keeps v = fadd(v, fmul(q_k, fadd(acc_k, b_k))) in
+//   registers over the heads, with the block's biases in shared memory;
+//   then (max, lowest column) over the thread's columns, the quad's shuffles
+//   and the two column warps of a row. q is never folded into W: that would
+//   round another function. B5's block owns 128 columns. B6's owns 128, 64
+//   or 32: the widest at which two blocks share an SM, else the widest that
+//   fits one (wargmax_cols). At smorl's K = 3, F = 64 that is 64 in "high"
+//   (two blocks of 108 KB an SM; 128 columns would take 158 KB) and 128 in
+//   "default"; scripts/torch_b6_columns.py times the three counts there,
+//   and this choice was the fastest in both. K = 5 at F = 128 in "high"
+//   takes 32 (204 KB).
+// - "highest" (argmax_tile_kernel): the block owns 64 rows x 128 columns
+//   and computes its tile of v in registers (head_tile.cuh's logits tile,
+//   once per head for B6, summed into a second register tile).
 
 #include <climits>
 
@@ -58,6 +69,11 @@
 namespace {
 
 using namespace head_tile;
+using mma_tile::kWalkRows;
+using mma_tile::kWalkThreads;
+
+// B6 on the tensor cores takes K heads up to this.
+constexpr int kMmaMaxHeads = 5;
 
 // (m, i) wins over (mo, io): the larger value, the lower column on a tie.
 __device__ __forceinline__ void take_better(float& m, int& i, float mo, int io) {
@@ -67,22 +83,21 @@ __device__ __forceinline__ void take_better(float& m, int& i, float mo, int io) 
   }
 }
 
-// Per (row, column block): the block's (max, lowest column at the max) of v.
-// qw == nullptr is B5 (K = 1, v = h W + b).
-template <int P>
+// "highest": per (row, column block), the block's (max, lowest column at
+// the max) of v. qw == nullptr is B5 (K = 1, v = h W + b).
 __global__ void __launch_bounds__(kTileThreads)
 argmax_tile_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ qw,
                    float* __restrict__ part_max, int* __restrict__ part_idx, int B, int F, int A,
                    int K, int valid) {
-  __shared__ TileSmem<P> smem;
+  __shared__ TileSmem smem;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * kTileCols, m0 = blockIdx.y * kTileRows;
 
   float v[4][8];
   for (int k = 0; k < K; ++k) {
     float acc[4][8];
-    logits_tile<P>(h, w + (size_t)k * F * A, B, F, A, m0, n0, smem, acc);
+    logits_tile(h, w + (size_t)k * F * A, B, F, A, m0, n0, smem, acc);
     const float q = qw == nullptr ? 1.0f : qw[k];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -125,114 +140,74 @@ argmax_tile_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-// B5 in "high" and "default" on the bf16 tensor cores (mma_tile.cuh): the
-// block owns 128 columns, splits W's columns into planes once, and loops
-// over all of B in tiles of 64 rows of h, split as each is staged. W and
-// the h tiles come through a staging buffer by cp.async (16 bytes a copy
-// where rows allow it), the next tile in flight while the block computes
-// the current one. Eight warps; warp (wr, wc) = (warp % 4, warp / 4)
-// computes rows 16 wr.. at columns 64 wc.. of the tile; the two column
-// halves of a row meet in shared memory.
-constexpr int kMmaRows = 64, kMmaLdW = kTileCols + 8;
+// The epilogue of the head walk (mma_tile.cuh) for B5 (WEIGHTED false, K =
+// 1) and B6: per row tile, v at the thread's columns n0 + c0 + 16 i + 8 t + e
+// of rows g and g + 8 of its warp's 16, then per row the (max, lowest
+// column at the max) over the thread's columns, the quad and the two column
+// warps, written to the row's partial of this block.
+template <int COLS, bool WEIGHTED>
+struct ArgmaxEpilogue {
+  static constexpr int NI = COLS / 32;
+  const float* qw;
+  const float* b_s;  // B6: (K, COLS) biases of the block's columns, 0 at >= valid
+  float* red_m;      // (2 column halves, kWalkRows rows)
+  int* red_i;
+  float* part_max;
+  int* part_idx;
+  int B, A, K, valid, n0, c0, nblk;
+  float bcol[NI][2][2];  // B5: the bias at the thread's columns, 0 at >= valid
+  float v[NI][2][4];     // B6: the weighted sum over the heads so far
 
-// W's and h's planes, the staging buffer (W's F x 128 columns, or two h
-// tiles of 64 x F), and the two halves' (max, column) of 64 rows.
-__host__ __device__ inline size_t argmax_mma_smem(int F, int P) {
-  const size_t fp = (F + 15) / 16 * 16, planes = P == 1 ? 2 : 1;
-  return 2 * planes * (fp * kMmaLdW + (size_t)kMmaRows * (fp + 8)) +
-         4 * (size_t)F * kTileCols + 8 * 2 * kMmaRows;
-}
-
-template <int P>
-__global__ void __launch_bounds__(kTileThreads)
-argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                  const float* __restrict__ bias, float* __restrict__ part_max,
-                  int* __restrict__ part_idx, int B, int F, int A, int valid, int vec_w,
-                  int vec_h) {
-  using namespace mma_tile;
-  constexpr bool LO = P == 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int fp = (F + 15) / 16 * 16;
-  unsigned char* p = smem_raw;
-  auto planes = [&](int n_rows, int ld) {
-    Planes s{reinterpret_cast<bf16*>(p), nullptr, ld};
-    p += 2 * (size_t)n_rows * ld;
-    if (LO) {
-      s.lo = reinterpret_cast<bf16*>(p);
-      p += 2 * (size_t)n_rows * ld;
-    }
-    return s;
-  };
-  const Planes ws = planes(fp, kMmaLdW);       // W's columns (fp, 128), >= valid 0
-  const Planes hs = planes(kMmaRows, fp + 8);  // the tile's rows of h (64, fp)
-  float* stage = reinterpret_cast<float*>(p);  // (F, 128) or 2 x (64, F)
-  float* red_m = stage + (size_t)F * kTileCols;  // (2 column halves, 64 rows)
-  int* red_i = reinterpret_cast<int*>(red_m + 2 * kMmaRows);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
-  const int n0 = blockIdx.x * kTileCols, nblk = gridDim.x;
-
-  fetch_cols<kTileCols, kTileThreads>(stage, w, F, A, n0, vec_w);
-  // this thread's columns: n0 + 64 wc + 16 i + 8 t + 2 q + e
-  float bcol[4][2][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + 64 * wc + 16 * i + 8 * t + 2 * q + e;
-        bcol[i][t][e] = col < valid ? bias[col] : 0.0f;
+  __device__ __forceinline__ ArgmaxEpilogue(const float* bias, const float* qw_, float* smem,
+                                            float* part_max_, int* part_idx_, int B_, int A_,
+                                            int K_, int valid_)
+      : qw(qw_), part_max(part_max_), part_idx(part_idx_), B(B_), A(A_), K(K_), valid(valid_) {
+    const int tid = threadIdx.x, lane = tid % 32, wc = tid / 32 / 4;
+    n0 = blockIdx.x * COLS;
+    c0 = COLS / 2 * wc + 2 * (lane % 4);
+    nblk = gridDim.x;
+    red_m = smem;
+    red_i = reinterpret_cast<int*>(red_m + 2 * kWalkRows);
+    float* b_w = reinterpret_cast<float*>(red_i + 2 * kWalkRows);
+    b_s = b_w;
+    if constexpr (WEIGHTED) {
+      // read after the walk's first barrier
+      for (int e = tid; e < K * COLS; e += kWalkThreads) {
+        const int col = n0 + e % COLS;
+        b_w[e] = col < valid ? bias[(size_t)(e / COLS) * A + col] : 0.0f;
       }
-  cp_async_wait<0>();
-  __syncthreads();
-  split_cols<P, kTileCols, kTileThreads>(ws, stage, F, fp, n0, valid);
-  __syncthreads();  // the staging buffer is free for h
-
-  // rows m0.. of h (a contiguous run of whole rows) into buffer `buf`; with
-  // vec_h (F % 4 == 0, h 16-byte aligned) in 16-byte copies
-  const int n_tiles = (B + kMmaRows - 1) / kMmaRows;
-  auto fetch = [&](int tile) {
-    const int m0 = tile * kMmaRows, n = (B - m0 < kMmaRows ? B - m0 : kMmaRows) * F;
-    const float* src = h + (size_t)m0 * F;
-    float* dst = stage + (tile % 2) * kMmaRows * F;
-    if (vec_h) {
-      for (int i = 4 * tid; i < n; i += 4 * kTileThreads) cp_async16(dst + i, src + i);
     } else {
-      for (int i = tid; i < n; i += kTileThreads) cp_async4(dst + i, src + i);
-    }
-    cp_async_commit();
-  };
-  fetch(0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int m0 = tile * kMmaRows;
-    if (tile + 1 < n_tiles) {
-      fetch(tile + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // the tile has landed; the previous tile's readers are done
-    const float* cur = stage + (tile % 2) * kMmaRows * F;
-    for (int e = tid; e < kMmaRows * fp / 2; e += kTileThreads) {
-      const int r = e / (fp / 2), k = 2 * (e % (fp / 2));
-      const bool live = m0 + r < B;
-      store_split2<P>(hs, r * hs.ld + k, live && k < F ? cur[r * F + k] : 0.0f,
-                      live && k + 1 < F ? cur[r * F + k + 1] : 0.0f);
-    }
-    __syncthreads();
-
-    float acc[4][2][4] = {};
-    for (int k0 = 0; k0 < fp; k0 += 16) {
-      Frag a;
-      load_a<P>(a, hs, 16 * wr, k0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Frag b;
-        load_b<P>(b, ws, k0, 64 * wc + 16 * i);
-        mma_pair<P>(acc[i], a, b);
-      }
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + c0 + 16 * i + 8 * t + e;
+            bcol[i][t][e] = col < valid ? bias[col] : 0.0f;
+          }
+    }
+  }
+
+  __device__ __forceinline__ void operator()(int k, int m0, const float (&acc)[NI][2][4]) {
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+    if constexpr (WEIGHTED) {
+      const float qk = qw[k];
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float bk = b_s[k * COLS + c0 + 16 * i + 8 * t + e];
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              float& x = v[i][t][2 * hr + e];
+              x = __fadd_rn(k == 0 ? 0.0f : x, __fmul_rn(qk, __fadd_rn(acc[i][t][2 * hr + e], bk)));
+            }
+          }
+      if (k + 1 < K) return;  // K is the same for every thread
     }
 
     // per row (g, g + 8): (max, lowest column at the max) over the thread's
@@ -242,14 +217,16 @@ argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
       float m = -CUDART_INF_F;
       int idx = INT_MAX;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
         for (int t = 0; t < 2; ++t)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int col = n0 + 64 * wc + 16 * i + 8 * t + 2 * q + e;
-            if (col < A)
-              take_better(m, idx, col < valid ? acc[i][t][2 * hr + e] + bcol[i][t][e] : kNeg, col);
+            const int col = n0 + c0 + 16 * i + 8 * t + e;
+            if (col < A) {
+              const float x = WEIGHTED ? v[i][t][2 * hr + e] : acc[i][t][2 * hr + e] + bcol[i][t][e];
+              take_better(m, idx, col < valid ? x : kNeg, col);
+            }
           }
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {
@@ -259,19 +236,58 @@ argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
       }
       if (q == 0) {
         const int r = 16 * wr + g + 8 * hr;
-        red_m[wc * kMmaRows + r] = m;
-        red_i[wc * kMmaRows + r] = idx;
+        red_m[wc * kWalkRows + r] = m;
+        red_i[wc * kWalkRows + r] = idx;
       }
     }
     __syncthreads();
-    if (tid < kMmaRows && m0 + tid < B) {
+    if (tid < kWalkRows && m0 + tid < B) {
       float m = red_m[tid];
       int idx = red_i[tid];
-      take_better(m, idx, red_m[kMmaRows + tid], red_i[kMmaRows + tid]);
+      take_better(m, idx, red_m[kWalkRows + tid], red_i[kWalkRows + tid]);
       part_max[(size_t)(m0 + tid) * nblk + blockIdx.x] = m;
       part_idx[(size_t)(m0 + tid) * nblk + blockIdx.x] = idx;
     }
   }
+};
+
+// Bytes of shared memory of argmax_mma_kernel: the walk's, the two column
+// halves' (max, column) of a tile's rows and, for B6, the block's biases.
+__host__ __device__ inline size_t argmax_mma_smem(int F, int P, int K, int cols, bool weighted) {
+  return mma_tile::walk_smem(F, P, K, cols) + 8 * 2 * kWalkRows +
+         (weighted ? 4 * (size_t)K * cols : 0);
+}
+
+template <int P, int COLS, bool WEIGHTED>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ bias, const float* __restrict__ qw,
+                  float* __restrict__ part_max, int* __restrict__ part_idx, int B, int F, int A,
+                  int K, int valid, int vec_w, int vec_h) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int heads = WEIGHTED ? K : 1;  // B5's single head known to the compiler
+  ArgmaxEpilogue<COLS, WEIGHTED> epi(
+      bias, qw, reinterpret_cast<float*>(smem_raw + mma_tile::walk_smem(F, P, heads, COLS)),
+      part_max, part_idx, B, A, heads, valid);
+  mma_tile::head_walk<P, COLS>(h, w, B, F, A, heads, valid, vec_w, vec_h, smem_raw, epi);
+}
+
+// Columns per block of B6 in "high" and "default": the widest of 128, 64
+// and 32 at which two blocks fit on an SM (233472 bytes of shared memory,
+// 1 KB of it reserved per block), else the widest at which one block fits;
+// 0 if none does. B5 always takes 128.
+int wargmax_cols(int F, int K, int P) {
+  constexpr size_t kSmemPerSm = 233472, kReserved = 1024;
+  for (int cols = 128; cols >= 32; cols /= 2)
+    if (2 * (argmax_mma_smem(F, P, K, cols, true) + kReserved) <= kSmemPerSm) return cols;
+  for (int cols = 128; cols >= 32; cols /= 2)
+    if (argmax_mma_smem(F, P, K, cols, true) <= mma_tile::kMaxSmem) return cols;
+  return 0;
+}
+
+// Columns per block of a launch: kTileCols in "highest" and for B5.
+int block_cols(int F, int K, bool weighted, int precision) {
+  return precision == 0 || !weighted ? kTileCols : wargmax_cols(F, K, precision);
 }
 
 // One warp per row merges the row's nblk partials.
@@ -306,57 +322,72 @@ cudaError_t launch_merge(const float* part_max, const int* part_idx, long long* 
   return cudaGetLastError();
 }
 
-template <int P>
-int launch_argmax_mma(const float* h, const float* w, const float* b, long long* idx, float* mx,
-                      float* part_max, int* part_idx, int B, int F, int A, int valid,
-                      cudaStream_t st) {
+template <int P, int COLS, bool WEIGHTED>
+cudaError_t launch_argmax_mma(const float* h, const float* w, const float* b, const float* qw,
+                              float* part_max, int* part_idx, int B, int F, int A, int K,
+                              int valid, cudaStream_t st) {
   static size_t allowed[mma_tile::kMaxDevices] = {};
-  const size_t smem = argmax_mma_smem(F, P);
-  cudaError_t err = mma_tile::allow_smem((const void*)argmax_mma_kernel<P>, smem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  const int nblk = (A + kTileCols - 1) / kTileCols;
+  const size_t smem = argmax_mma_smem(F, P, K, COLS, WEIGHTED);
+  const void* kernel = (const void*)argmax_mma_kernel<P, COLS, WEIGHTED>;
+  cudaError_t err = mma_tile::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
   const int vec_w = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int vec_h = F % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-  argmax_mma_kernel<P><<<nblk, kTileThreads, smem, st>>>(h, w, b, part_max, part_idx, B, F, A,
-                                                         valid, vec_w, vec_h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(part_max, part_idx, idx, mx, B, nblk, st);
+  argmax_mma_kernel<P, COLS, WEIGHTED><<<(A + COLS - 1) / COLS, kWalkThreads, smem, st>>>(
+      h, w, b, qw, part_max, part_idx, B, F, A, K, valid, vec_w, vec_h);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_mma(const float* h, const float* w, const float* b, const float* qw,
+                       float* part_max, int* part_idx, int B, int F, int A, int K, int valid,
+                       int cols, cudaStream_t st) {
+  if (qw == nullptr)
+    return launch_argmax_mma<P, 128, false>(h, w, b, qw, part_max, part_idx, B, F, A, 1, valid,
+                                            st);
+  if (cols == 128)
+    return launch_argmax_mma<P, 128, true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
+                                           st);
+  if (cols == 64)
+    return launch_argmax_mma<P, 64, true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
+                                          st);
+  return launch_argmax_mma<P, 32, true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, st);
 }
 
 }  // namespace
 
 // Entries of each of the two scratch arrays (float max, int32 column) that
-// fused_argmax needs for (B, A): one per (row, column block).
-extern "C" long long fused_argmax_scratch(int B, int A) {
-  return (long long)B * ((A + kTileCols - 1) / kTileCols);
+// fused_argmax needs for these arguments: one per (row, column block).
+extern "C" long long fused_argmax_scratch(int B, int F, int A, int K, int weighted,
+                                          int precision) {
+  const int cols = block_cols(F, K, weighted != 0, precision);
+  return cols > 0 ? (long long)B * ((A + cols - 1) / cols) : 0;
 }
 
 // Launches B5 (qw == NULL, K == 1) or B6 on `stream`: idx (B) int64 and mx
-// (B) fp32 of the argmax described above. Returns cudaGetLastError() (0 on
-// success).
+// (B) fp32 of the argmax described above. In "high" and "default" F may be
+// at most 128 and K at most 5. Returns cudaGetLastError() (0 on success).
 extern "C" int fused_argmax(const float* h, const float* w, const float* b, const float* qw,
                             long long* idx, float* mx, float* part_max, int* part_idx, int B,
                             int F, int A, int K, int valid, int precision, void* stream) {
   if (B < 1 || F < 1 || A < 1 || K < 1 || (qw == nullptr && K != 1) || valid < 0 ||
-      valid > A || precision < 0 || precision > 2)
+      valid > A || precision < 0 || precision > 2 ||
+      (precision != 0 && (F > mma_tile::kWalkMaxF || K > kMmaMaxHeads)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
-  if (qw == nullptr && precision == 1)
-    return launch_argmax_mma<1>(h, w, b, idx, mx, part_max, part_idx, B, F, A, valid, st);
-  if (qw == nullptr && precision == 2)
-    return launch_argmax_mma<2>(h, w, b, idx, mx, part_max, part_idx, B, F, A, valid, st);
-  if (precision == 0)
-    argmax_tile_kernel<0><<<grid, kTileThreads, 0, st>>>(h, w, b, qw, part_max, part_idx, B, F, A,
-                                                         K, valid);
-  else if (precision == 1)
-    argmax_tile_kernel<1><<<grid, kTileThreads, 0, st>>>(h, w, b, qw, part_max, part_idx, B, F, A,
-                                                         K, valid);
-  else
-    argmax_tile_kernel<2><<<grid, kTileThreads, 0, st>>>(h, w, b, qw, part_max, part_idx, B, F, A,
-                                                         K, valid);
-  cudaError_t err = cudaGetLastError();
+  const int cols = block_cols(F, K, qw != nullptr, precision);
+  if (cols < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (precision == 1) {
+    err = launch_mma<1>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
+  } else if (precision == 2) {
+    err = launch_mma<2>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
+  } else {
+    const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
+    argmax_tile_kernel<<<grid, kTileThreads, 0, st>>>(h, w, b, qw, part_max, part_idx, B, F, A,
+                                                      K, valid);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(part_max, part_idx, idx, mx, B, (int)grid.x, st);
+  return (int)launch_merge(part_max, part_idx, idx, mx, B, (A + cols - 1) / cols, st);
 }

@@ -15,29 +15,39 @@
 // lse, g, ct (B), dW (F, A), db (A), dh (B, F), all fp32.
 //
 // Precision of the three products, as _dot/_dot3 of the TPU kernels
-// ("highest" fp32, "high" the bf16x3 split, "default" one bf16 pass). B1,
-// and B2 in "highest", run them on the CUDA cores (head_tile.cuh: fp32 FMAs,
-// three per multiply-accumulate in "high"). B2 in "high" and "default" runs
-// them on the bf16 tensor cores (mma_tile.cuh: mma.sync.m16n8k16 from
-// ldmatrix, each operand split once as it is staged).
+// ("highest" fp32, "high" the bf16x3 split, "default" one bf16 pass). In
+// "highest" both run them on the CUDA cores as fp32 FMAs (B1 on
+// head_tile.cuh). In "high" and "default" both run them on the bf16 tensor
+// cores (mma_tile.cuh: mma.sync.m16n8k16 from ldmatrix, each operand split
+// once as it is staged) and take F <= 128; B2 takes F <= 128 in "highest"
+// too.
 //
 // What bounds it: at the train point (B=256, F=64, A=70852) B1 reads W once
 // (18.1 MB) and does 2.32 GFLOP per pass, B2 reads W and writes dW (36 MB)
-// and does three such products, plus 18.1 M expf. On bf16 tensor cores
+// and does three such products, plus 18.1 M expf each. On bf16 tensor cores
 // (989 TFLOP/s) "high" is bound by operations: 0.0070 ms for B1, 0.0211 ms
-// for B2. B1 sits on the 67 TFLOP/s fp32 CUDA cores, 35x above its bound;
-// moving it onto the tensor-core tile is the next kernel work. "highest" is
-// bound at 0.035 ms (B1) and 0.104 ms (B2) on the CUDA cores.
+// for B2. "highest" is bound at 0.035 ms (B1) and 0.104 ms (B2) on the
+// 67 TFLOP/s fp32 CUDA cores.
 //
 // B1 design: the TPU walks column blocks in order and carries the running
 // (max, sum-exp, label logit) from one grid step to the next. Here each
-// block owns 128 columns x 64 rows, computes its logits tile in registers
-// (head_tile.cuh: a 4 x 8 tile per thread, K in chunks of 16 through shared
-// memory; B6 shares it), and
-// writes per-row partials (m, s, g) of its columns; a second kernel merges
-// them per row: m = max m_i, s = sum s_i exp(m_i - m), g = sum g_i,
-// lse = m + log s. The -1e30 sentinel is finite, never -inf, so a block
-// whose columns are all masked gives m_i = -1e30 and vanishes in the merge.
+// block owns 128 columns and writes per-row partials (m, s, g) of its
+// columns; a second kernel merges them per row: m = max m_i,
+// s = sum s_i exp(m_i - m), g = sum g_i, lse = m + log s. The -1e30
+// sentinel is finite, never -inf, so a block whose columns are all masked
+// gives m_i = -1e30 and vanishes in the merge.
+// - "high" and "default" (ce_fwd_mma_kernel): mma_tile.cuh's head walk, as
+//   B5: W's 128 columns split into bf16 planes once, all of B walked in
+//   64-row tiles of h that arrive by cp.async. Per tile the epilogue adds
+//   the bias to the C fragment and masks columns >= valid_dim to -1e30;
+//   per row each thread takes the max over its 16 columns and the quad's
+//   shuffles, then sum exp(l - m) and the label's logit over the same, and
+//   the two column warps of a row meet in shared memory, s rescaled to the
+//   larger max. The exponentials are expf (full precision), 18.1 M a call
+//   at the train point.
+// - "highest" (ce_fwd_kernel): the block owns 128 columns x 64 rows and
+//   computes its logits tile in registers (head_tile.cuh: a 4 x 8 tile per
+//   thread, K in chunks of 16 through shared memory).
 //
 // B2 design: one block per SM, each walking a strided set of 64-column
 // chunks, so dW and db of a chunk's columns are summed by one block alone:
@@ -79,6 +89,8 @@ using namespace head_tile;
 using mma_tile::allow_smem;
 using mma_tile::kMaxDevices;
 using mma_tile::kMaxSmem;
+using mma_tile::kWalkRows;
+using mma_tile::kWalkThreads;
 
 constexpr int kThreads = 256;
 static_assert(kThreads == kTileThreads, "B1 runs the shared logits tile");
@@ -87,16 +99,16 @@ static_assert(kThreads == kTileThreads, "B1 runs the shared logits tile");
 // B1: per-(column block, row) partials, then a per-row merge
 // ---------------------------------------------------------------------------
 
-template <int P>
+// "highest": fp32 FMAs on the CUDA cores.
 __global__ void __launch_bounds__(kThreads)
 ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const float* __restrict__ bias, const long long* __restrict__ labels,
               float* __restrict__ part, int B, int F, int A, int valid) {
-  __shared__ TileSmem<P> smem;
+  __shared__ TileSmem smem;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * kTileCols, m0 = blockIdx.y * kTileRows;
   float acc[4][8];
-  logits_tile<P>(h, w, B, F, A, m0, n0, smem, acc);
+  logits_tile(h, w, B, F, A, m0, n0, smem, acc);
 
   // Per row: max, sum of exp and label logit over this block's columns. The
   // 16 threads of a row (equal ty) are one half-warp.
@@ -134,6 +146,126 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
       p[2] = g;
     }
   }
+}
+
+// The epilogue of the head walk (mma_tile.cuh) for B1: per row tile, the
+// logits at the thread's columns n0 + c0 + 16 i + 8 t + e of rows g and
+// g + 8 of its warp's 16, and per row the (m, s, g) of the block's columns.
+struct CeEpilogue {
+  static constexpr int NI = 4;  // 128 columns a block
+  const long long* labels;
+  float* red;  // (2 column halves, kWalkRows rows, 3)
+  float* part;
+  int B, A, valid, n0, c0, nblk;
+  float bcol[NI][2][2];  // the bias at the thread's columns, 0 at >= valid
+
+  __device__ __forceinline__ CeEpilogue(const float* bias, const long long* labels_, float* smem,
+                                        float* part_, int B_, int A_, int valid_)
+      : labels(labels_), red(smem), part(part_), B(B_), A(A_), valid(valid_) {
+    const int lane = threadIdx.x % 32, wc = threadIdx.x / 32 / 4;
+    n0 = blockIdx.x * kTileCols;
+    c0 = kTileCols / 2 * wc + 2 * (lane % 4);
+    nblk = gridDim.x;
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + c0 + 16 * i + 8 * t + e;
+          bcol[i][t][e] = col < valid ? bias[col] : 0.0f;
+        }
+  }
+
+  __device__ __forceinline__ void operator()(int, int m0, const float (&acc)[NI][2][4]) {
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * wr + g + 8 * hr, row = m0 + r;
+      const long long lbl = row < B ? labels[row] : -1;
+      float l[NI][2][2];
+      float m = kNeg;  // over the columns < A, masked ones at -1e30
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + c0 + 16 * i + 8 * t + e;
+            l[i][t][e] = col < valid ? acc[i][t][2 * hr + e] + bcol[i][t][e] : kNeg;
+            if (col < A) m = fmaxf(m, l[i][t][e]);
+          }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float s = 0.0f, gl = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + c0 + 16 * i + 8 * t + e;
+            if (col < A) s += expf(l[i][t][e] - m);
+            if (col < valid && col == lbl) gl += l[i][t][e];
+          }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        gl += __shfl_xor_sync(0xffffffffu, gl, o);
+      }
+      if (q == 0) {
+        float* x = red + (wc * kWalkRows + r) * 3;
+        x[0] = m;
+        x[1] = s;
+        x[2] = gl;
+      }
+    }
+    __syncthreads();
+    if (tid < kWalkRows && m0 + tid < B) {
+      const float* x0 = red + tid * 3;
+      const float* x1 = red + (kWalkRows + tid) * 3;
+      const float mn = fmaxf(x0[0], x1[0]);
+      float* p = part + ((size_t)(m0 + tid) * nblk + blockIdx.x) * 3;
+      p[0] = mn;
+      p[1] = x0[1] * expf(x0[0] - mn) + x1[1] * expf(x1[0] - mn);
+      p[2] = x0[2] + x1[2];
+    }
+  }
+};
+
+// Bytes of shared memory of ce_fwd_mma_kernel: the walk's and the two
+// column halves' (m, s, g) of a tile's rows.
+__host__ __device__ inline size_t fwd_mma_smem(int F, int P) {
+  return mma_tile::walk_smem(F, P, 1, kTileCols) + 4 * 3 * 2 * kWalkRows;
+}
+
+template <int P>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+ce_fwd_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ bias, const long long* __restrict__ labels,
+                  float* __restrict__ part, int B, int F, int A, int valid, int vec_w,
+                  int vec_h) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CeEpilogue epi(bias, labels,
+                 reinterpret_cast<float*>(smem_raw + mma_tile::walk_smem(F, P, 1, kTileCols)),
+                 part, B, A, valid);
+  mma_tile::head_walk<P, kTileCols>(h, w, B, F, A, 1, valid, vec_w, vec_h, smem_raw, epi);
+}
+
+template <int P>
+cudaError_t launch_fwd_mma(const float* h, const float* w, const float* b,
+                           const long long* labels, float* part, int B, int F, int A, int valid,
+                           cudaStream_t st) {
+  static size_t allowed[kMaxDevices] = {};
+  const size_t smem = fwd_mma_smem(F, P);
+  cudaError_t err = allow_smem((const void*)ce_fwd_mma_kernel<P>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int vec_w = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int vec_h = F % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  ce_fwd_mma_kernel<P><<<(A + kTileCols - 1) / kTileCols, kWalkThreads, smem, st>>>(
+      h, w, b, labels, part, B, F, A, valid, vec_w, vec_h);
+  return cudaGetLastError();
 }
 
 // One warp per row merges the row's nblk partials.
@@ -694,21 +826,25 @@ extern "C" long long fused_ce_fwd_scratch(int B, int A) {
 }
 
 // Launches B1 on `stream`: lse and label logit (B) of h W + b masked at
-// columns >= valid. Returns cudaGetLastError() (0 on success).
+// columns >= valid. In "high" and "default" F may be at most 128. Returns
+// cudaGetLastError() (0 on success).
 extern "C" int fused_ce_fwd(const float* h, const float* w, const float* b,
                             const long long* labels, float* lse, float* g, float* scratch, int B,
                             int F, int A, int valid, int precision, void* stream) {
-  if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2)
+  if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2 ||
+      (precision != 0 && F > mma_tile::kWalkMaxF))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
-  if (precision == 0)
-    ce_fwd_kernel<0><<<grid, kThreads, 0, st>>>(h, w, b, labels, scratch, B, F, A, valid);
-  else if (precision == 1)
-    ce_fwd_kernel<1><<<grid, kThreads, 0, st>>>(h, w, b, labels, scratch, B, F, A, valid);
-  else
-    ce_fwd_kernel<2><<<grid, kThreads, 0, st>>>(h, w, b, labels, scratch, B, F, A, valid);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (precision == 1) {
+    err = launch_fwd_mma<1>(h, w, b, labels, scratch, B, F, A, valid, st);
+  } else if (precision == 2) {
+    err = launch_fwd_mma<2>(h, w, b, labels, scratch, B, F, A, valid, st);
+  } else {
+    ce_fwd_kernel<<<grid, kThreads, 0, st>>>(h, w, b, labels, scratch, B, F, A, valid);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
   const int rows_per_block = kThreads / 32;
   ce_merge_kernel<<<(B + rows_per_block - 1) / rows_per_block, kThreads, 0, st>>>(

@@ -1,6 +1,7 @@
-// The tensor-core operand tile of B2 (fused_ce.cu) and B5 (fused_argmax.cu)
-// in "high" and "default": bf16 planes in shared memory, fed by ldmatrix to
-// mma.sync.m16n8k16 with fp32 accumulators.
+// The tensor-core operand tile of B1, B2 (fused_ce.cu), B5 and B6
+// (fused_argmax.cu) in "high" and "default": bf16 planes in shared memory,
+// fed by ldmatrix to mma.sync.m16n8k16 with fp32 accumulators; and the head
+// walk that B1, B5 and B6 share (below).
 //
 // Each fp32 operand x is split once, as it is staged into shared memory,
 // into hi = bf16(x) and lo = bf16(x - hi) (P == 1, "high"; "default", P == 2,
@@ -238,6 +239,129 @@ __device__ __forceinline__ void split_cols(const Planes& ws, const float* stage,
     const float* src = stage + k * COLS + c;
     store_split2<P>(ws, k * ws.ld + c, k < F && n0 + c < valid ? src[0] : 0.0f,
                     k < F && n0 + c + 1 < valid ? src[1] : 0.0f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The head walk of B1 (fused_ce.cu), B5 and B6 (fused_argmax.cu)
+// ---------------------------------------------------------------------------
+//
+// A block of kWalkThreads threads owns COLS (128, 64 or 32) columns,
+// n0 = COLS * blockIdx.x onwards, of K heads W_k (F, A), stored (K, F, A)
+// contiguous. It splits them into planes once, columns >= valid and rows
+// F..fp as 0, so nothing there (NaN included) reaches a product; each head
+// comes through the fp32 staging buffer by cp.async. Then it walks all B
+// rows of h (B, F) in tiles of kWalkRows: a tile arrives by cp.async into
+// the staging buffer while the block computes the tile before it, and is
+// split into planes as it lands. Eight warps; warp (wr, wc) = (warp % 4,
+// warp / 4) computes rows 16 wr.. of a tile at the block's columns
+// COLS / 2 * wc + 16 i + 8 t + 2 q + e (i < COLS / 32; g = lane / 4,
+// q = lane % 4): per tile and head k, acc[i][t][2 hr + e] holds (h W_k) at
+// row g + 8 hr of those 16, summed over F padded to 16 by mma_pair (k
+// chunks outer, column blocks inner). The walk hands them to the epilogue,
+// epi(k, m0, acc) for k = 0..K-1, called by every thread of the block; the
+// call may __syncthreads, and the walk's next write to shared memory comes
+// after a __syncthreads of its own, so the epilogue may read its shared
+// memory after its barrier.
+constexpr int kWalkThreads = 256, kWalkRows = 64;
+// F the walk takes: K = 1 head at F = 128 in "high" holds 172 KB (B1).
+constexpr int kWalkMaxF = 128;
+
+// Bytes of shared memory of the walk (the epilogue's come after them): the
+// K heads' planes of W's columns, the planes of a tile of h, and the fp32
+// staging buffer, which holds one head's (F, COLS) columns or two tiles of
+// h (kWalkRows, F). A multiple of 16.
+__host__ __device__ inline size_t walk_smem(int F, int P, int K, int cols) {
+  const size_t fp = (F + 15) / 16 * 16, planes = P == 1 ? 2 : 1;
+  return 2 * planes * (K * fp * (cols + 8) + kWalkRows * (fp + 8)) +
+         4 * (size_t)F * 2 * kWalkRows;
+}
+
+template <int P, int COLS, class Epi>
+__device__ __forceinline__ void head_walk(const float* __restrict__ h,
+                                          const float* __restrict__ w, int B, int F, int A,
+                                          int K, int valid, int vec_w, int vec_h,
+                                          unsigned char* smem, Epi& epi) {
+  static_assert(COLS == 128 || COLS == 64 || COLS == 32, "a warp takes 16, 32 or 64 columns");
+  constexpr bool LO = P == 1;
+  constexpr int NI = COLS / 32, LD = COLS + 8;
+  const int fp = (F + 15) / 16 * 16;
+  const size_t head = (size_t)fp * LD;  // elements of one head's plane
+  unsigned char* p = smem;
+  auto planes = [&](size_t n, int ld) {
+    Planes s{reinterpret_cast<bf16*>(p), nullptr, ld};
+    p += 2 * n;
+    if (LO) {
+      s.lo = reinterpret_cast<bf16*>(p);
+      p += 2 * n;
+    }
+    return s;
+  };
+  const Planes ws = planes(K * head, LD);                   // K x (fp, COLS), >= valid 0
+  const Planes hs = planes(kWalkRows * (size_t)(fp + 8), fp + 8);  // the tile (64, fp)
+  float* stage = reinterpret_cast<float*>(p);  // (F, COLS) or 2 x (64, F)
+  auto head_planes = [&](int k) {
+    return Planes{ws.hi + k * head, LO ? ws.lo + k * head : nullptr, LD};
+  };
+
+  const int tid = threadIdx.x, warp = tid / 32, wr = warp % 4, wc = warp / 4;
+  const int n0 = blockIdx.x * COLS;
+  for (int k = 0; k < K; ++k) {
+    fetch_cols<COLS, kWalkThreads>(stage, w + (size_t)k * F * A, F, A, n0, vec_w);
+    cp_async_wait<0>();
+    __syncthreads();
+    split_cols<P, COLS, kWalkThreads>(head_planes(k), stage, F, fp, n0, valid);
+    __syncthreads();  // the staging buffer is free
+  }
+
+  // rows m0.. of h (a contiguous run of whole rows) into buffer tile % 2;
+  // with vec_h (F % 4 == 0, h 16-byte aligned) in 16-byte copies
+  const int n_tiles = (B + kWalkRows - 1) / kWalkRows;
+  auto fetch = [&](int tile) {
+    const int m0 = tile * kWalkRows, n = (B - m0 < kWalkRows ? B - m0 : kWalkRows) * F;
+    const float* src = h + (size_t)m0 * F;
+    float* dst = stage + (tile % 2) * kWalkRows * F;
+    if (vec_h) {
+      for (int i = 4 * tid; i < n; i += 4 * kWalkThreads) cp_async16(dst + i, src + i);
+    } else {
+      for (int i = tid; i < n; i += kWalkThreads) cp_async4(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int m0 = tile * kWalkRows;
+    if (tile + 1 < n_tiles) {
+      fetch(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile has landed; the previous tile's readers are done
+    const float* cur = stage + (tile % 2) * kWalkRows * F;
+    for (int e = tid; e < kWalkRows * fp / 2; e += kWalkThreads) {
+      const int r = e / (fp / 2), c = 2 * (e % (fp / 2));
+      const bool live = m0 + r < B;
+      store_split2<P>(hs, r * hs.ld + c, live && c < F ? cur[r * F + c] : 0.0f,
+                      live && c + 1 < F ? cur[r * F + c + 1] : 0.0f);
+    }
+    __syncthreads();
+
+    for (int k = 0; k < K; ++k) {
+      const Planes wk = head_planes(k);
+      float acc[NI][2][4] = {};
+      for (int k0 = 0; k0 < fp; k0 += 16) {
+        Frag a;
+        load_a<P>(a, hs, 16 * wr, k0);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          Frag b;
+          load_b<P>(b, wk, k0, COLS / 2 * wc + 16 * i);
+          mma_pair<P>(acc[i], a, b);
+        }
+      }
+      epi(k, m0, acc);
+    }
   }
 }
 

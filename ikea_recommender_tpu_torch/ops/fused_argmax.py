@@ -42,7 +42,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ikea_recommender_tpu_torch.ops import build
-from ikea_recommender_tpu_torch.ops.fused_ce import PRECISIONS, _dot
+from ikea_recommender_tpu_torch.ops.fused_ce import MAX_MMA_FEATURES, PRECISIONS, _dot
 
 _NEG = -1e30
 
@@ -50,10 +50,10 @@ _NEG = -1e30
 LAUNCHES = 0  # B5, fused_linear_argmax
 WEIGHTED_LAUNCHES = 0  # B6, fused_weighted_multihead_argmax
 
-# B5 in "high" and "default" keeps W's 128 columns (staged in fp32, then as
-# bf16 planes) and a tile of h in shared memory: 171008 bytes at F = 128 in
-# "high", of the 232448 a block may hold. It takes F up to this, as B2 does.
-MAX_MMA_FEATURES = 128
+# B6 in "high" and "default" keeps the planes of all K heads' columns in
+# shared memory; it takes K up to this (the reference's "K is tiny (<=5)")
+# and F up to MAX_MMA_FEATURES, as B5 does.
+MAX_MMA_HEADS = 5
 
 _FNS = None
 
@@ -149,7 +149,7 @@ def _kernel_fns():
         fn.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
         fn.restype = i32
         scratch = lib.fused_argmax_scratch
-        scratch.argtypes = [i32, i32]
+        scratch.argtypes = [i32] * 6
         scratch.restype = ctypes.c_longlong
         _FNS = fn, scratch
     return _FNS
@@ -161,24 +161,25 @@ def _launch(h, w, b, q_weights, valid_dim, precision):
             raise ValueError("fused argmax takes contiguous inputs on CUDA")
     (B, F), A = h.shape, w.shape[-1]
     K = 1 if q_weights is None else q_weights.shape[0]
-    if q_weights is None and precision != "highest" and F > MAX_MMA_FEATURES:
+    if precision != "highest" and (F > MAX_MMA_FEATURES or K > MAX_MMA_HEADS):
         raise ValueError(
-            f"the fused_argmax tensor-core kernel takes F <= {MAX_MMA_FEATURES} in "
-            f"{precision!r}, got F={F}"
+            f"the fused_argmax tensor-core kernel takes F <= {MAX_MMA_FEATURES} and "
+            f"K <= {MAX_MMA_HEADS} in {precision!r}, got F={F}, K={K}"
         )
     fn, scratch = _kernel_fns()
     dev = h.device
     idx = torch.empty((B,), dtype=torch.int64, device=dev)
     mx = torch.empty((B,), dtype=torch.float32, device=dev)
+    p = PRECISIONS.index(precision)
     with torch.cuda.device(dev):
-        n = scratch(B, A)
+        n = scratch(B, F, A, K, int(q_weights is not None), p)
         part_max = torch.empty((n,), dtype=torch.float32, device=dev)
         part_idx = torch.empty((n,), dtype=torch.int32, device=dev)
         err = fn(
             h.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if q_weights is None else q_weights.data_ptr(),
             idx.data_ptr(), mx.data_ptr(), part_max.data_ptr(), part_idx.data_ptr(),
-            B, F, A, K, int(valid_dim), PRECISIONS.index(precision),
+            B, F, A, K, int(valid_dim), p,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

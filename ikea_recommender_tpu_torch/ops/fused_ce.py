@@ -46,6 +46,10 @@ BWD_LAUNCHES = 0  # B2, the backward
 # The backward kernel keeps its (rows, F) dh part next to its tiles in
 # shared memory; it takes F up to this.
 MAX_BWD_FEATURES = 128
+# The tensor-core kernels of "high" and "default" (B1 here, B5 and B6 in
+# ops/fused_argmax.py) keep W's columns and a tile of h in shared memory as
+# bf16 planes; they take F up to this, as B2 does.
+MAX_MMA_FEATURES = 128
 
 _FNS = None
 
@@ -169,6 +173,11 @@ def _launch_fwd(h, w, b, labels, valid_dim, precision):
     global LAUNCHES
     labels = _cuda_inputs(h, w, b, labels)
     (B, F), A = h.shape, w.shape[1]
+    if precision != "highest" and F > MAX_MMA_FEATURES:
+        raise ValueError(
+            f"the fused_ce forward tensor-core kernel takes F <= {MAX_MMA_FEATURES} in "
+            f"{precision!r}, got F={F}"
+        )
     fwd, _, fwd_scratch, _ = _kernel_fns()
     dev = h.device
     lse = torch.empty((B,), dtype=torch.float32, device=dev)

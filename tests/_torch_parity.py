@@ -38,6 +38,36 @@ def gru_inputs(B, T, H, seed, masked=True):
     return xw, wh, bh, (mask if masked else None)
 
 
+def fold_sensitive_heads(B, F, A, seed):
+    """Numpy (h, w (3, F, A), b (3, A), q (3,)) for B6 whose weighted head
+    sum rounds differently in head order than after folding q into W.
+
+    Heads 0 and 2 are the same integer head X with weights Q and -Q, head 1
+    an integer head Y with weight 1, so every product and every fold is
+    exact: sum_k q_k W_k = Y, and the folded values are h Y + b_1 exactly.
+    In head order, Q (h X) is at least 2^24, so adding head 1's logit to it
+    rounds that logit to a multiple of 2 or more before -Q (h X) takes the
+    large part away again."""
+    rs = np.random.RandomState(seed)
+    h = rs.randint(1, 3, (B, F)).astype(np.float32)
+    x = rs.randint(1, 3, (F, A)).astype(np.float32)  # h X in [F, 4 F]
+    y = rs.randint(-2, 3, (F, A)).astype(np.float32)
+    w = np.stack([x, y, x])
+    b = np.zeros((3, A), np.float32)
+    b[1] = rs.randint(-2, 3, A)
+    big = 2.0 ** (24 - int(np.floor(np.log2(F))))
+    return h, w, b, np.asarray([big, 1.0, -big], np.float32)
+
+
+def folded_head_values(h, w, b, q):
+    """The values B6 would take with q folded into W and b first (numpy,
+    fp32): h (sum_k q_k W_k) + sum_k q_k b_k, each sum in head order."""
+    wf, bf = np.zeros_like(w[0]), np.zeros_like(b[0])
+    for k in range(len(q)):
+        wf, bf = wf + q[k] * w[k], bf + q[k] * b[k]
+    return h @ wf + bf
+
+
 def to_torch(*arrays, device="cpu"):
     return [None if a is None else torch.tensor(a, device=device) for a in arrays]
 

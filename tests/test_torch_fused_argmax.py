@@ -7,7 +7,9 @@ plain twins. The argmax case matrix is that of ``tests/test_fused_argmax.py``:
 exact, ragged and padded catalogs ((A, valid) in {(384, 384), (300, 300),
 (384, 300)}), lowest-id ties across the reference's 128-column blocks,
 ``valid_dim`` as a runtime value, NaN in the padded columns, the three
-precisions and ``with_max``.
+precisions and ``with_max``; B6 also at K = 5 with F = 128, the most the
+tensor-core kernel takes, and on data whose head-order sum rounds
+differently from the sum with q folded into W.
 
 Tolerances:
 - argmax: the max within 1e-5 of the largest |max| (fp32 sums in other
@@ -31,7 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import _torch_parity  # noqa: F401  (TF32 off)
+from _torch_parity import fold_sensitive_heads, folded_head_values  # also: TF32 off
 
 from ikea_recommender_tpu.ops import fused_argmax as jfa
 from ikea_recommender_tpu.ops import rewards as jrew
@@ -126,6 +128,46 @@ def test_weighted_argmax_head_counts(K):
         *(torch.tensor(a) for a in (h, w, b, qw)), valid, with_max=True)
     dense = sum(qw[k] * (h.astype(np.float64) @ w[k] + b[k]) for k in range(K))
     _assert_argmax(got_i, got_m, want_i, want_m, dense, valid)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_weighted_argmax_at_the_tensor_core_limit(precision):
+    """K = 5 heads at F = 128: the most heads at the widest F that the
+    tensor-core kernel takes."""
+    K, F, A, valid = 5, 128, 300, 280
+    h, w, b = _head(8, F, A, seed=F + K, K=K, nan_from=valid)
+    qw = np.linspace(0.5, 1.5, K).astype(np.float32)
+    ref_prec = "highest" if precision == "default" else precision
+    jh, jw = (_bf(h), _bf(w)) if precision == "default" else (h, w)
+    want_i, want_m = jfa.fused_weighted_multihead_argmax(
+        jnp.asarray(jh), jnp.asarray(jw), jnp.asarray(b), jnp.asarray(qw), valid, ref_prec,
+        with_max=True)
+    got_i, got_m = fused_argmax.fused_weighted_multihead_argmax(
+        torch.tensor(h), torch.tensor(w), torch.tensor(b), torch.tensor(qw), valid, precision,
+        with_max=True)
+    dense = sum(qw[k] * (jh.astype(np.float64) @ np.nan_to_num(jw[k]) + np.nan_to_num(b[k]))
+                for k in range(K))
+    _assert_argmax(got_i, got_m, want_i, want_m, dense, valid)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_weighted_argmax_sums_heads_in_order(precision):
+    """The heads' weighted sum is taken in head order with a rounding after
+    each term, as the reference's kernel takes it; folding q into W first is
+    another function. On data where the two differ (every product exact,
+    the sums rounding differently), the twin equals the reference to the
+    last bit, and the folded argmax differs from both."""
+    h, w, b, q = fold_sensitive_heads(16, 8, 300, seed=5)
+    valid = 290
+    want_i, want_m = jfa.fused_weighted_multihead_argmax(
+        *(jnp.asarray(a) for a in (h, w, b, q)), valid, precision, with_max=True)
+    got_i, got_m = fused_argmax.fused_weighted_multihead_argmax(
+        *(torch.tensor(a) for a in (h, w, b, q)), valid, precision, with_max=True)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    folded = folded_head_values(h, w, b, q)[:, :valid]
+    assert (folded.argmax(axis=1) != got_i.numpy()).any()
+    assert (folded.max(axis=1) != got_m.numpy()).any()
 
 
 def _tied_head(A, F, dup_of, dups):

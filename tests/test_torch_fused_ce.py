@@ -6,7 +6,9 @@ The same numpy inputs go through the reference's ``fused_softmax_ce``
 plain twins; value and gradients (dh, dw, db) of ``sum(ce * weights)``.
 The case matrix is that of ``tests/test_fused_ce.py``: exact and ragged
 tails, padded columns (``valid_dim < A``), a whole block past
-``valid_dim``, NaN in the padded columns of W, and the three precisions.
+``valid_dim``, NaN in the padded columns of W, and the three precisions;
+the forward also at F = 128 and F = 24, the widest and a padded width of
+its tensor-core kernel.
 
 Tolerances. "highest" and "high" compute the same products on both sides
 (bf16 products are exact in fp32), so they differ only in summation order:
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from ikea_recommender_tpu.ops.fused_ce import _fwd as jax_fwd
 from ikea_recommender_tpu.ops.fused_ce import fused_softmax_ce as jax_fused_softmax_ce
 from ikea_recommender_tpu_torch.ops import fused_ce
 from ikea_recommender_tpu_torch.ops.fused_ce import (
@@ -95,6 +98,26 @@ def test_matches_reference(shape, precision):
             np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5, err_msg=name)
     # padded columns receive exactly zero gradient
     assert (grads[1][:, valid:] == 0).all() and (grads[2][valid:] == 0).all()
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("F", [128, 24])
+def test_forward_at_the_tensor_core_widths(F, precision):
+    """B1's (lse, label logit) against the reference's forward kernel at the
+    widths its tensor-core kernel must take: F = 128, its limit, and F = 24,
+    which it pads with zeros to 32; a label at or past valid_dim counts 0."""
+    B, A, valid = 8, 300, 260
+    h, w, b, labels, _ = _inputs(B, F, A, valid, nan_tail=True, seed=F)
+    labels[0] = 270
+    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    jh, jw = (bf(h), bf(w)) if precision == "default" else (h, w)
+    want = jax_fwd(*(jnp.asarray(a) for a in (jh, jw, b, labels)), valid,
+                   "highest" if precision == "default" else precision)
+    got = fused_ce_fwd(*(torch.tensor(a) for a in (h, w, b, labels)), valid, precision)
+    for g, x, name in zip(got, want, ("lse", "label logit")):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), atol=1e-5, rtol=0, err_msg=name)
+    assert got[1][0] == 0
 
 
 def test_twins_against_dense_cross_entropy():

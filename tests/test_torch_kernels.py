@@ -21,12 +21,20 @@ in expf/tanhf against torch's exp/sigmoid/tanh. Tolerances:
   everywhere; ids equal wherever the twin's top two values differ by more
   than that (the rows excluded are counted and must be few). On inputs of
   small integers every sum is exact in any order, so there the ids, ties
-  included, must be equal everywhere and the lowest of the tied ids.
+  included, must be equal everywhere and the lowest of the tied ids; on
+  data whose weighted head sum rounds differently in head order than with
+  q folded into W, B6's ids and maxima must equal the twin's bit for bit.
 """
 
 import pytest
 import torch
-from _torch_parity import cuda_device, gru_inputs, to_torch  # noqa: F401
+from _torch_parity import (  # noqa: F401
+    cuda_device,
+    fold_sensitive_heads,
+    folded_head_values,
+    gru_inputs,
+    to_torch,
+)
 
 from ikea_recommender_tpu_torch.ops import fused_argmax, fused_ce, gru_cuda
 from ikea_recommender_tpu_torch.ops.fused_ce import (
@@ -172,12 +180,14 @@ def _ce_inputs(B, F, A, valid, nan_tail, device, seed=0):
 @pytest.mark.parametrize("B,F,A,valid,precision,nan_tail", CE_SHAPES)
 def test_fused_ce_matches_twin(cuda_device, B, F, A, valid, precision, nan_tail):
     h, w, b, labels, ct = _ce_inputs(B, F, A, valid, nan_tail, cuda_device)
+    lse_p, lbl_p = fused_ce_fwd_plain(h, w, b, labels, valid, precision)
     before = (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES)
     lse, lbl = fused_ce_fwd(h, w, b, labels, valid, precision)
-    dh, dw, db = fused_ce_bwd(h, w, b, labels, lse, ct, valid, precision)
+    # B2 and its twin on the same lse: in "default" dl is rounded to bf16, so
+    # an lse one ulp off moves an entry of dl by a bf16 step (DW_OFF_LABEL_TOL)
+    dh, dw, db = fused_ce_bwd(h, w, b, labels, lse_p, ct, valid, precision)
     torch.cuda.synchronize()
     assert (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    lse_p, lbl_p = fused_ce_fwd_plain(h, w, b, labels, valid, precision)
     dh_p, dw_p, db_p = fused_ce_bwd_plain(h, w, b, labels, lse_p, ct, valid, precision)
     for got, want, name in ((lse, lse_p, "lse"), (lbl, lbl_p, "label logit"),
                             (dh, dh_p, "dh"), (dw, dw_p, "dw"), (db, db_p, "db")):
@@ -188,6 +198,21 @@ def test_fused_ce_matches_twin(cuda_device, B, F, A, valid, precision, nan_tail)
     _assert_close(dw[:, off], dw_p[:, off], "dw off-label", tol=dw_off_tol)
     _assert_close(db[off], db_p[off], "db off-label")
     assert (dw[:, valid:] == 0).all() and (db[valid:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_fused_ce_fwd_is_deterministic(cuda_device, precision):
+    """Two launches at the train point give bit-identical lse and label
+    logits: each block's partials and their merge are summed in a fixed
+    order."""
+    B, F, A, valid = 256, 64, 70852, 70852
+    h, w, b, labels, _ = _ce_inputs(B, F, A, valid, False, cuda_device, seed=2)
+    first = fused_ce_fwd(h, w, b, labels, valid, precision)
+    second = fused_ce_fwd(h, w, b, labels, valid, precision)
+    torch.cuda.synchronize()
+    for a, c, name in zip(first, second, ("lse", "label logit")):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.cuda
@@ -237,6 +262,9 @@ ARGMAX_SHAPES = [  # (B, F, A, valid, K or None for B5, precision, nan_tail)
     (37, 24, 1000, 777, None, "high", True),  # F padded to a multiple of 16
     (100, 40, 4099, 4001, None, "high", True),  # A % 4 != 0
     (300, 128, 4096, 3000, None, "high", True),  # five row tiles, F = 128
+    (256, 64, 70852, 70852, 3, "default", False),  # the smorl point in "default"
+    (300, 128, 4096, 3000, 5, "high", True),  # the most B6 takes: 32-column blocks
+    (100, 40, 4099, 4001, 3, "high", True),  # A % 4 != 0 with three heads
 ]
 
 
@@ -319,34 +347,72 @@ def test_fused_argmax_exact_ties(cuda_device, K, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 3])
 @pytest.mark.parametrize("precision", ["high", "default"])
-def test_fused_argmax_is_deterministic(cuda_device, precision):
-    """B5 is a pure function of its inputs: two launches give the same ids
-    and maxima, bit for bit."""
+def test_fused_argmax_is_deterministic(cuda_device, precision, K):
+    """B5 and B6 are pure functions of their inputs: two launches give the
+    same ids and maxima, bit for bit."""
     B, F, A, valid = 256, 64, 70852, 70852
-    h, w, b, _ = _argmax_inputs(B, F, A, valid, None, False, cuda_device, seed=4)
-    first = _run_argmax(h, w, b, None, valid, precision)
-    second = _run_argmax(h, w, b, None, valid, precision)
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, False, cuda_device, seed=4)
+    first = _run_argmax(h, w, b, q, valid, precision)
+    second = _run_argmax(h, w, b, q, valid, precision)
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_fused_wargmax_sums_heads_in_order(cuda_device, precision):
+    """B6 sums the weighted heads in head order, rounding after each term:
+    on data where that differs from folding q into W (every product exact),
+    its ids and maxima equal the twin's bit for bit, and the folded argmax
+    differs."""
+    B, F, A, valid = 256, 64, 70912, 70852
+    arrays = fold_sensitive_heads(B, F, A, seed=6)
+    h, w, b, q = to_torch(*arrays, device=cuda_device)
+    idx, mx = _run_argmax(h, w, b, q, valid, precision)
+    torch.cuda.synchronize()
+    v = fused_argmax.head_values_plain(h, w, b, valid, precision, q)
+    assert torch.equal(idx, v.argmax(dim=1)) and torch.equal(mx, v.amax(dim=1))
+    folded = folded_head_values(*arrays)[:, :valid]
+    assert (folded.argmax(axis=1) != idx.cpu().numpy()).any()
+
+
+def _launch_counts():
+    return (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES, fused_argmax.LAUNCHES,
+            fused_argmax.WEIGHTED_LAUNCHES)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["high", "default"])
 def test_tensor_core_kernels_refuse_features_past_their_limit(cuda_device, precision):
-    """B2 and B5 on the tensor cores hold W's columns and rows of h in shared
-    memory: past F = 128 they raise instead of launching; B5 in "highest"
-    (the CUDA-core tile) still takes that F."""
+    """B1, B2, B5 and B6 on the tensor cores hold W's columns and rows of h
+    in shared memory: past F = 128, and B6 past K = 5 heads, they raise
+    instead of launching; in "highest" (the CUDA-core tile) B1, B5 and B6
+    still take those shapes."""
     B, F, A, valid = 4, 129, 300, 300
     h, w, b, labels, ct = _ce_inputs(B, F, A, valid, False, cuda_device)
+    heads = _argmax_inputs(B, F, A, valid, 3, False, cuda_device)
+    six = _argmax_inputs(B, 64, A, valid, 6, False, cuda_device)
     lse, _ = fused_ce_fwd_plain(h, w, b, labels, valid, precision)
-    before = fused_ce.BWD_LAUNCHES, fused_argmax.LAUNCHES
+    before = _launch_counts()
+    with pytest.raises(ValueError, match="F <= 128"):
+        fused_ce_fwd(h, w, b, labels, valid, precision)
     with pytest.raises(ValueError, match="F <= 128"):
         fused_ce_bwd(h, w, b, labels, lse, ct, valid, precision)
     with pytest.raises(ValueError, match="F <= 128"):
         _run_argmax(h, w, b, None, valid, precision)
-    assert (fused_ce.BWD_LAUNCHES, fused_argmax.LAUNCHES) == before
-    idx, _ = _run_argmax(h, w, b, None, valid, "highest")
-    want, mx, gap = _twin_argmax(h, w, b, None, valid, "highest")
-    torch.cuda.synchronize()
-    assert ((idx == want) | (gap <= 1e-5 * mx.abs().max())).all()
+    with pytest.raises(ValueError, match="F <= 128"):
+        _run_argmax(*heads, valid, precision)
+    with pytest.raises(ValueError, match="K <= 5"):
+        _run_argmax(*six, valid, precision)
+    assert _launch_counts() == before
+    got = fused_ce_fwd(h, w, b, labels, valid, "highest")
+    for a, c, name in zip(got, fused_ce_fwd_plain(h, w, b, labels, valid, "highest"),
+                          ("lse", "label logit")):
+        _assert_close(a, c, name)
+    for args in ((h, w, b, None), heads, six):
+        idx, _ = _run_argmax(*args, valid, "highest")
+        want, mx, gap = _twin_argmax(*args, valid, "highest")
+        torch.cuda.synchronize()
+        assert ((idx == want) | (gap <= 1e-5 * mx.abs().max())).all()
