@@ -14,10 +14,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the paths give it and at longer, wider and padded ones, with the
    kernel's time, the twin's, its bound and one PyTorch call's as a
    yardstick: B3 gru_fwd and B4 gru_bwd (the GRU recurrence and its
-   adjoint), B1 fused_ce_fwd and B2 fused_ce_bwd (the softmax CE over the
+   adjoint, also at the bidir point H = 128 in both directions), B1 fused_ce_fwd and B2 fused_ce_bwd (the softmax CE over the
    catalog and its gradients, in "high", "default", "highest" and with a
-   NaN-padded catalog; B2's yardstick is autograd's backward replayed from
-   a CUDA graph, its eager time beside it), B5 fused_argmax and B6
+   NaN-padded catalog, at the gru4rec head width F = 64 and the bidir one
+   F = 256, and at F = 200; B2's yardstick is autograd's backward replayed
+   from a CUDA graph, its eager time beside it), B5 fused_argmax and B6
    fused_wargmax (the argmax over the catalog of one Q head, and of K = 3
    heads' weighted sum: max within 1e-5 of the twin's largest, ids equal
    wherever the twin's two best differ by more; also "default",
@@ -50,7 +51,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    train unchanged bit for bit), then 1 warm-up and 20 timed steps with
    the coins drawn on the host, whose counters must show per step B1, B2,
    B5 once and B3 three times (sqn), or B2, B6 once and B3 three times and
-   no B1 (smorl), and B4 once.
+   no B1 (smorl), and B4 once;
+7. train bidir_gru4rec: the CE step at the width of
+   ``experiments/Ablations/BidirGRU-128/BidirGRU-128.yaml`` (E 64, H 128, so
+   the head input is F = 256; lr 0.0005, dropout 0.35 on the head input),
+   as phase 5, with the card and the CPU copies given the same dropout
+   masks for the checked steps and params held to lr / 1000; per timed
+   step B1 and B2 once, B3 and B4 twice (both directions).
    Afterwards neither jax nor the reference package may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
@@ -61,6 +68,7 @@ and the yardstick's time; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -282,13 +290,16 @@ def gru_case(B, T, H, masked):
 
 
 def kernels_gru_fwd():
-    """B3 gru_fwd against gru_scan_plain; rows keyed by shape."""
+    """B3 gru_fwd against gru_scan_plain; rows keyed by (B, T, H), the first
+    of each."""
     from ikea_recommender_tpu_torch.ops.gru_cuda import gru_scan, gru_scan_plain
 
     rows = {}
     for B, T, H, masked, reverse in [
         (256, 10, 64, True, False),  # the train point
         (512, 10, 64, True, False),  # the serving point
+        (256, 10, 128, True, False),  # the bidir point, both directions
+        (256, 10, 128, True, True),
         (256, 200, 64, True, True),  # long sequences, reverse direction
         (256, 50, 256, False, False),  # wide: W_h from L2, unmasked
     ]:
@@ -315,18 +326,21 @@ def kernels_gru_fwd():
                    rel_err=rel, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(f"[kernels] B3 gru_fwd {json.dumps(row)}")
-        rows[(B, T, H)] = row
+        rows.setdefault((B, T, H), row)
     return rows
 
 
 def kernels_gru_bwd():
-    """B4 gru_bwd against gru_scan_bwd_plain; the train point's row."""
+    """B4 gru_bwd against gru_scan_bwd_plain; rows keyed by (B, T, H), the
+    first of each."""
     from ikea_recommender_tpu_torch.ops import gru_cuda
     from ikea_recommender_tpu_torch.ops.gru_cuda import gru_scan_bwd_plain, gru_scan_plain
 
-    rows = []
+    rows = {}
     for B, T, H, masked, reverse in [
         (256, 10, 64, True, False),  # the train point
+        (256, 10, 128, True, False),  # the bidir point, both directions
+        (256, 10, 128, True, True),
         (256, 200, 64, True, True),  # long sequences, reverse direction
         (256, 50, 256, False, False),  # wide: W_h from L2, unmasked
     ]:
@@ -361,13 +375,14 @@ def kernels_gru_bwd():
                    rel_err=rel, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(f"[kernels] B4 gru_bwd {json.dumps(row)}")
-        rows.append(row)
-    return rows[0]
+        rows.setdefault((B, T, H), row)
+    return rows
 
 
 def kernels_fused_ce():
-    """B1 fused_ce_fwd and B2 fused_ce_bwd against their twins; the train
-    point's rows ("high", no padding)."""
+    """B1 fused_ce_fwd and B2 fused_ce_bwd against their twins; the rows of
+    the gru4rec train point (F = 64) and, under "<name> bidir", of the
+    bidir_gru4rec one (F = 2 H = 256), both "high" without padding."""
     import torch.nn.functional as F
 
     from ikea_recommender_tpu_torch.ops.fused_ce import (
@@ -383,6 +398,11 @@ def kernels_fused_ce():
         (256, 64, 70852, 70852, "default"),
         (256, 64, 70852, 70852, "highest"),
         (256, 64, 70912, 70852, "high"),  # padded to 554 x 128, NaN in the pad
+        (256, 256, 70852, 70852, "high"),  # the bidir point: B1 and B2 sliced over F
+        (256, 256, 70852, 70852, "default"),
+        (256, 256, 70852, 70852, "highest"),
+        (256, 256, 70912, 70852, "high"),
+        (256, 200, 70852, 70852, "high"),  # F not a multiple of 128: slices of 128 and 72
     ]:
         g = torch.Generator(device="cuda").manual_seed(A)
         h = torch.randn(B, Fd, device="cuda", generator=g)
@@ -464,7 +484,7 @@ def kernels_fused_ce():
             if lib_call is not None:
                 row["library_call_ms"] = lib_call
             print(f"[kernels] {name} {json.dumps(row)}")
-            rows.setdefault(name, row)
+            rows.setdefault({64: name, 256: f"{name} bidir"}.get(Fd, f"{name} F={Fd}"), row)
     return rows
 
 
@@ -577,10 +597,12 @@ def kernels_fused_argmax():
 def phase_kernels():
     """Every kernel against its twin. Returns the rows of the main paths'
     shapes: B3 at the train and serving points, B4, B1 and B2 at the train
-    point, B5 and B6 at the sqn and smorl train points."""
-    b3 = kernels_gru_fwd()
+    point, B5 and B6 at the sqn and smorl train points, and B1-B4 at the
+    bidir point under "<name> bidir"."""
+    b3, b4 = kernels_gru_fwd(), kernels_gru_bwd()
     rows = {"B3 gru_fwd": b3[(256, 10, 64)], "B3 serving": b3[(512, 10, 64)],
-            "B4 gru_bwd": kernels_gru_bwd()}
+            "B3 gru_fwd bidir": b3[(256, 10, 128)], "B4 gru_bwd": b4[(256, 10, 64)],
+            "B4 gru_bwd bidir": b4[(256, 10, 128)]}
     rows.update(kernels_fused_ce())
     rows.update(kernels_fused_argmax())
     return rows
@@ -751,21 +773,65 @@ def named_leaves(tree, path=""):
     return {path.rstrip("/"): tree.detach().float().cpu().clone()}
 
 
-def phase_train(profile=False):
-    """The gru4rec train step at full width: 3 steps against CPU copies,
-    then 1 warm-up and 20 timed steps. Returns the timed run's launches."""
+# The CE train steps' operating points: gru4rec at the RetailRocket width
+# (bench.py:57-139), bidir_gru4rec at that of
+# experiments/Ablations/BidirGRU-128/BidirGRU-128.yaml (head input F = 2 H).
+CE_POINTS = {
+    "gru4rec": dict(E=64, H=64, lr=0.01, dropout=0.0),
+    "bidir_gru4rec": dict(E=64, H=128, lr=0.0005, dropout=0.35),
+}
+# Of the entries some checked step moved, the fractions whose gradients are
+# clear at every step (all entries, the head kernel's), as this script's
+# seeded data gives them, read off the CPU side: gru4rec 0.339 and 0.299,
+# bidir_gru4rec 0.1908 and 0.1763 (most of its head's entries take a
+# nonzero gradient below 1e-6 at some step).
+COMPARED_FLOORS = {"gru4rec": (0.3, 0.25), "bidir_gru4rec": (0.17, 0.15)}
+
+
+@contextlib.contextmanager
+def shared_keep_masks(seed):
+    """Inside, the k-th dropout keep mask drawn from each train state's
+    generator is the k-th mask of one seeded CPU generator, moved to the
+    state's device: the card and its CPU copy drop the same entries.
+    Outside, the step draws as it always does."""
+    from ikea_recommender_tpu_torch.models import backbone
+
+    drawn, masks, gen = {}, [], torch.Generator().manual_seed(seed)
+    draw = backbone.draw_keep_mask
+
+    def same_mask(shape, keep, generator, device):
+        k = drawn.get(id(generator), 0)
+        drawn[id(generator)] = k + 1
+        if k == len(masks):
+            masks.append(torch.rand(shape, generator=gen) < keep)
+        return masks[k].to(device)
+
+    backbone.draw_keep_mask = same_mask
+    try:
+        yield
+    finally:
+        backbone.draw_keep_mask = draw
+
+
+def phase_train(family="gru4rec", profile=False):
+    """A CE train step (gru4rec or bidir_gru4rec) at full width: 3 steps
+    against CPU copies, with the same dropout masks on both sides, then 1
+    warm-up and 20 timed steps. Returns the timed run's launches."""
     from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
     from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
     from ikea_recommender_tpu_torch.models.families import model_config_from_train
     from ikea_recommender_tpu_torch.train.state import make_train_state
     from ikea_recommender_tpu_torch.train.steps import loss_and_grads, make_train_step
 
-    A, E, T, B, LR, N_CHECK, N_TIMED = 70852, 64, 10, 256, 0.01, 3, 20
-    tc = TrainConfig(model="gru4rec", batch_size=B, embedding_size=E, hidden_state_size=E,
-                     state_size=T, learning_rate=LR, fused_ce=True, head_precision="high")
+    pt = CE_POINTS[family]
+    A, T, B, N_CHECK, N_TIMED = 70852, 10, 256, 3, 20
+    E, H, LR = pt["E"], pt["H"], pt["lr"]
+    tc = TrainConfig(model=family, batch_size=B, embedding_size=E, hidden_state_size=H,
+                     state_size=T, learning_rate=LR, dropout=pt["dropout"], fused_ce=True,
+                     head_precision="high")
     mc = model_config_from_train(tc, DataConfig(num_items=A))
     if not (mc.fused_ce and mc.head_precision == "high"):
-        fail("the RetailRocket width must train through the fused CE in 'high'")
+        fail(f"{family} at catalog {A} must train through the fused CE in 'high'")
     np_params = numpy_init_params(mc, seed=0)
     rs = np.random.RandomState(0)
     batches = [{k: v for k, v in bench_batch(rs, B, A, T).items()
@@ -778,9 +844,17 @@ def phase_train(profile=False):
     for dev in ("cuda", "cpu"):
         states[dev], opt = make_train_state(params_from_numpy(np_params, dev), mc, LR, device=dev)
         steps[dev] = make_train_step(mc, opt, device=dev)
-    grads = {dev: loss_and_grads(states[dev].params,
-                                 {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()},
-                                 mc)[1] for dev in states}
+    losses = {"cuda": [], "cpu": []}
+    with shared_keep_masks(seed=1):
+        grads = {dev: loss_and_grads(
+            states[dev].params, {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()},
+            mc, states[dev].generator)[1] for dev in states}
+        mus = [named_leaves(states["cpu"].opt_state.mu)]
+        for b in batches[:N_CHECK]:
+            for dev in states:
+                states[dev], m = steps[dev](states[dev], b)
+                losses[dev].append(m["sup_loss"].item())
+            mus.append(named_leaves(states["cpu"].opt_state.mu))
     # first-step gradients, per leaf: max |card - cpu| <= 1e-4 max |cpu|
     # (fp32 sums of up to B*T*A terms in other orders; a wrong kernel is off
     # by O(1)). The head's columns that no row labels take only B2's softmax
@@ -793,45 +867,40 @@ def phase_train(profile=False):
         d["sup_head/kernel off-label"] = d["sup_head/kernel"][:, off]
         d["sup_head/bias off-label"] = d["sup_head/bias"][off]
     grad_err = check_close([got_g[k] for k in want_g], list(want_g.values()), list(want_g),
-                           "train step: first-step gradient against the CPU twins", 1e-4)
-    losses = {"cuda": [], "cpu": []}
-    mus = [named_leaves(states["cpu"].opt_state.mu)]
-    for b in batches[:N_CHECK]:
-        for dev in states:
-            states[dev], m = steps[dev](states[dev], b)
-            losses[dev].append(m["sup_loss"].item())
-        mus.append(named_leaves(states["cpu"].opt_state.mu))
+                           f"{family} step: first-step gradient against the CPU twins", 1e-4)
     loss_err = max(abs(a - c) for a, c in zip(losses["cuda"], losses["cpu"]))
     if loss_err > 1e-4:  # losses near log(A) = 11.2; fp32 sums over A in other orders
-        fail(f"train step: losses {losses['cuda']} differ from the CPU twins' {losses['cpu']}")
-    # params after 3 steps, atol 1e-5 = lr / 1000, over the entries that some
-    # step moved on the CPU side (a nonzero gradient; rows no batch touches
-    # cannot differ), where each step's CPU gradient, read back from the
-    # first moment, is 0 or above 1e-6 in size: Adam moves an entry near
-    # zero by about +-lr whatever its size, so a summation-order difference
-    # there says nothing about the kernels. The head kernel, trained through
-    # B2, must be among them.
+        fail(f"{family} step: losses {losses['cuda']} differ from the CPU twins' {losses['cpu']}")
+    # params after 3 steps, atol lr / 1000 (1e-5 for gru4rec, 5e-7 for
+    # bidir), over the entries that some step moved on the CPU side (a
+    # nonzero gradient; rows no batch touches cannot differ), where each
+    # step's CPU gradient, read back from the first moment, is 0 or above
+    # 1e-6 in size: Adam moves an entry near zero by about +-lr whatever its
+    # size, so a summation-order difference there says nothing about the
+    # kernels. The head kernel, trained through B2, must be among them.
+    p_tol = LR / 1000
     got_p, want_p = (named_leaves(states[dev].params) for dev in ("cuda", "cpu"))
-    compared, param_err = {}, 0.0
+    compared, param_err, worst = {}, 0.0, None
     for name, want in want_p.items():
         g = torch.stack([(mus[k + 1][name] - 0.9 * mus[k][name]) / 0.1 for k in range(N_CHECK)])
         moved = (g != 0).any(dim=0)
         sure = moved & ((g == 0) | (g.abs() > 1e-6)).all(dim=0)
         err = (got_p[name] - want)[sure].abs().max().item() if sure.any() else 0.0
-        param_err = max(param_err, err)
-        if err > 1e-5:
-            fail(f"train step: {name} after {N_CHECK} steps differs by {err:.3g}")
+        if err > param_err:
+            param_err, worst = err, name
         compared[name] = (int(sure.sum()), int(moved.sum()))
     n_sure, n_moved = (sum(c[i] for c in compared.values()) for i in (0, 1))
     head_sure, head_moved = compared["sup_head/kernel"]
-    # this run's seeded data gives 0.339 of the moved entries and 0.299 of
-    # the head kernel's (both read off the CPU side)
-    if n_sure < 0.3 * n_moved or head_sure < 0.25 * head_moved:
-        fail(f"train step: too few params compared: {compared} (compared, moved)")
-    print(f"[train] {N_CHECK} steps on the card vs the CPU twins: losses {losses['cuda']}, "
-          f"max loss diff {loss_err:.3g}; first-step grads rel diff {json.dumps(grad_err)}; "
-          f"params max diff {param_err:.3g} over {n_sure} of {n_moved} moved entries "
-          f"({n_sure / n_moved:.4f}; head kernel {head_sure} of {head_moved})")
+    print(f"[train] {family}: {N_CHECK} steps on the card vs the CPU twins: losses "
+          f"{losses['cuda']}, max loss diff {loss_err:.3g}; first-step grads rel diff "
+          f"{json.dumps(grad_err)}; params max diff {param_err:.3g} ({worst}) over {n_sure} of "
+          f"{n_moved} moved entries ({n_sure / n_moved:.4f}; head kernel {head_sure} of "
+          f"{head_moved}, {head_sure / head_moved:.4f})")
+    if param_err > p_tol:
+        fail(f"{family} step: {worst} after {N_CHECK} steps differs by {param_err:.3g} > {p_tol:g}")
+    floor_all, floor_head = COMPARED_FLOORS[family]
+    if n_sure < floor_all * n_moved or head_sure < floor_head * head_moved:
+        fail(f"{family} step: too few params compared: {compared} (compared, moved)")
 
     # -- timed: the card's state goes on; 1 warm-up step, then 20 steps
     state, step = states["cuda"], steps["cuda"]
@@ -847,10 +916,10 @@ def phase_train(profile=False):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m["sup_loss"])
     launches = counters()
-    check_launches("gru4rec", launches, N_TIMED)
+    check_launches(family, launches, N_TIMED)
     if not torch.isfinite(torch.stack(metrics)).all():
-        fail("non-finite train loss")
-    step_ms_line("gru4rec", A, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
+        fail(f"non-finite {family} train loss")
+    step_ms_line(family, A, E, H, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
     if profile:
         profile_train(step, state, batches[-1])
     return launches
@@ -860,6 +929,8 @@ def phase_train(profile=False):
 # and in sqn and smorl also on the next state with each net).
 PER_STEP = {
     "gru4rec": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 1, "B4 gru_bwd": 1},
+    "bidir_gru4rec": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 2,
+                      "B4 gru_bwd": 2},
     "sqn": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1,
             "B5 fused_argmax": 1},
     "smorl": {"B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1, "B6 fused_wargmax": 1},
@@ -872,9 +943,9 @@ def check_launches(family, launches, n_steps):
         fail(f"{n_steps} {family} train steps launched {launches}, expected {want}")
 
 
-def step_ms_line(family, A, E, T, B, step_ms, launches, last_loss):
+def step_ms_line(family, A, E, H, T, B, step_ms, launches, last_loss):
     ms = float(np.median(step_ms))
-    print(f"[train] {family} A={A} E=H={E} T={T} B={B} high: {len(step_ms)} steps, "
+    print(f"[train] {family} A={A} E={E} H={H} T={T} B={B} high: {len(step_ms)} steps, "
           f"ms per step median {ms:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}, "
           f"p90 {float(np.percentile(step_ms, 90)):.3f}) = {B / ms * 1e3:.0f} sessions/s; "
           f"launches {launches}; last loss {last_loss}")
@@ -1025,7 +1096,7 @@ def phase_double_q(family, profile=False):
     check_launches(family, launches, N_TIMED)
     if not torch.isfinite(torch.stack(metrics)).all():
         fail(f"non-finite {family} train loss")
-    step_ms_line(family, A, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
+    step_ms_line(family, A, E, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
     if profile:
         profile_train(step, state, batches[-1])
     return launches
@@ -1065,9 +1136,10 @@ def main():
     profile = "--profile" in sys.argv[1:]
     # each path's launches, its counters reset just before its timed run
     paths = {"serving": {"B3 gru_fwd": phase_serving(profile=profile)},
-             "gru4rec": phase_train(profile=profile)}
+             "gru4rec": phase_train("gru4rec", profile=profile)}
     for family in ("sqn", "smorl"):
         paths[family] = phase_double_q(family, profile=profile)
+    paths["bidir_gru4rec"] = phase_train("bidir_gru4rec", profile=profile)
     # the card's machine has jax installed: show the port never loaded it
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))
@@ -1114,6 +1186,10 @@ def main():
         if name == "B3 gru_fwd":
             serving = rows["B3 serving"]
             entry.update(serving_ms=serving["ms"], serving_bound_ms=serving["bound_ms"])
+        if f"{name} bidir" in rows:  # the bidir_gru4rec point's figures
+            bidir = rows[f"{name} bidir"]
+            entry.update({f"bidir_{k}": bidir[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -19,8 +19,9 @@
 // "highest" both run them on the CUDA cores as fp32 FMAs (B1 on
 // head_tile.cuh). In "high" and "default" both run them on the bf16 tensor
 // cores (mma_tile.cuh: mma.sync.m16n8k16 from ldmatrix, each operand split
-// once as it is staged) and take F <= 128; B2 takes F <= 128 in "highest"
-// too.
+// once as it is staged) and take F <= 256; B2 takes F <= 256 in "highest"
+// too, B1 any F there. 256 = 2 H at hidden 128, bidir_gru4rec's widest head
+// in the repo's configs.
 //
 // What bounds it: at the train point (B=256, F=64, A=70852) B1 reads W once
 // (18.1 MB) and does 2.32 GFLOP per pass, B2 reads W and writes dW (36 MB)
@@ -44,7 +45,10 @@
 //   shuffles, then sum exp(l - m) and the label's logit over the same, and
 //   the two column warps of a row meet in shared memory, s rescaled to the
 //   larger max. The exponentials are expf (full precision), 18.1 M a call
-//   at the train point.
+//   at the train point. Past F = 128 W's planes of 128 columns no longer
+//   fit beside a tile of h's: the block owns 64 columns, 206 KB of shared
+//   memory at F = 256 in "high", one block an SM (the walk stages h in
+//   slices of 128 floats a row at any F).
 // - "highest" (ce_fwd_kernel): the block owns 128 columns x 64 rows and
 //   computes its logits tile in registers (head_tile.cuh: a 4 x 8 tile per
 //   thread, K in chunks of 16 through shared memory).
@@ -73,10 +77,20 @@
 //   updates meet no bank conflict. "high"'s cross passes go to their own
 //   fragments, added once per k loop. With 64-column chunks, 1108 of them
 //   at the train point over 132 blocks: 8 or 9 chunks a block, one block
-//   (eight warps, 237 registers a thread) an SM. It sits ~9x above its
-//   bound: a tile costs each warp ~100 ldmatrix.x4 for 240 mma and two
-//   barriers, so by count shared memory's bandwidth and the barriers, not
-//   the tensor cores, set its pace (no profiler of the SM's pipes here).
+//   (eight warps) an SM. It sits ~9x above its bound: a tile costs each
+//   warp ~100 ldmatrix.x4 for 240 mma and two barriers, so by count shared
+//   memory's bandwidth and the barriers, not the tensor cores, set its pace
+//   (no profiler of the SM's pipes here). A launch after the first reads
+//   the thread's old dW entries of a chunk all at once, then adds.
+// - F > 128 in "high" and "default" (ce_bwd_mma_sliced_kernel, the same
+//   tile steps through helpers): a warp's dW registers cover 8 f blocks
+//   (128 of F), and h's planes and the dh accumulator of one tile take
+//   132 KB at F = 256. So a launch takes one tile of 64 rows: its logits
+//   and dl once per chunk, then dW and dh over F in slices of 128, dW
+//   written per slice. W's chunk comes through registers (64 a thread),
+//   loaded while the chunk before it is computed, as the staging buffer
+//   would not fit. B = 256 takes four launches, each reading W and adding
+//   into dW and db.
 
 #include <cuda_runtime.h>
 
@@ -150,9 +164,11 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
 
 // The epilogue of the head walk (mma_tile.cuh) for B1: per row tile, the
 // logits at the thread's columns n0 + c0 + 16 i + 8 t + e of rows g and
-// g + 8 of its warp's 16, and per row the (m, s, g) of the block's columns.
+// g + 8 of its warp's 16, and per row the (m, s, g) of the block's COLS
+// columns.
+template <int COLS>
 struct CeEpilogue {
-  static constexpr int NI = 4;  // 128 columns a block
+  static constexpr int NI = COLS / 32;
   const long long* labels;
   float* red;  // (2 column halves, kWalkRows rows, 3)
   float* part;
@@ -163,8 +179,8 @@ struct CeEpilogue {
                                         float* part_, int B_, int A_, int valid_)
       : labels(labels_), red(smem), part(part_), B(B_), A(A_), valid(valid_) {
     const int lane = threadIdx.x % 32, wc = threadIdx.x / 32 / 4;
-    n0 = blockIdx.x * kTileCols;
-    c0 = kTileCols / 2 * wc + 2 * (lane % 4);
+    n0 = blockIdx.x * COLS;
+    c0 = COLS / 2 * wc + 2 * (lane % 4);
     nblk = gridDim.x;
 #pragma unroll
     for (int i = 0; i < NI; ++i)
@@ -234,38 +250,56 @@ struct CeEpilogue {
   }
 };
 
-// Bytes of shared memory of ce_fwd_mma_kernel: the walk's and the two
-// column halves' (m, s, g) of a tile's rows.
-__host__ __device__ inline size_t fwd_mma_smem(int F, int P) {
-  return mma_tile::walk_smem(F, P, 1, kTileCols) + 4 * 3 * 2 * kWalkRows;
+// Columns a block of B1 owns: 128, and 64 past the walk's kWalkMaxF, where
+// W's planes of 128 columns would not fit beside h's.
+__host__ __device__ inline int fwd_cols(int F, int precision) {
+  return precision != 0 && F > mma_tile::kWalkMaxF ? 64 : kTileCols;
 }
 
-template <int P>
+// Bytes of shared memory of ce_fwd_mma_kernel: the walk's and the two
+// column halves' (m, s, g) of a tile's rows.
+__host__ __device__ inline size_t fwd_mma_smem(int F, int P, int cols) {
+  return mma_tile::walk_smem(F, P, 1, cols) + 4 * 3 * 2 * kWalkRows;
+}
+
+template <int P, int COLS>
 __global__ void __launch_bounds__(kWalkThreads, 2)
 ce_fwd_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
                   const float* __restrict__ bias, const long long* __restrict__ labels,
                   float* __restrict__ part, int B, int F, int A, int valid, int vec_w,
                   int vec_h) {
+  // 64 columns a block only past kWalkMaxF (fwd_cols)
+  constexpr int MAXF = COLS == 64 ? mma_tile::kWalkNarrowMaxF : mma_tile::kWalkMaxF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  CeEpilogue epi(bias, labels,
-                 reinterpret_cast<float*>(smem_raw + mma_tile::walk_smem(F, P, 1, kTileCols)),
-                 part, B, A, valid);
-  mma_tile::head_walk<P, kTileCols>(h, w, B, F, A, 1, valid, vec_w, vec_h, smem_raw, epi);
+  CeEpilogue<COLS> epi(bias, labels,
+                       reinterpret_cast<float*>(smem_raw + mma_tile::walk_smem(F, P, 1, COLS)),
+                       part, B, A, valid);
+  mma_tile::head_walk<P, COLS, CeEpilogue<COLS>, MAXF>(h, w, B, F, A, 1, valid, vec_w, vec_h,
+                                                       smem_raw, epi);
+}
+
+template <int P, int COLS>
+cudaError_t launch_fwd_mma(const float* h, const float* w, const float* b,
+                           const long long* labels, float* part, int B, int F, int A, int valid,
+                           cudaStream_t st) {
+  static size_t allowed[kMaxDevices] = {};
+  const size_t smem = fwd_mma_smem(F, P, COLS);
+  cudaError_t err = allow_smem((const void*)ce_fwd_mma_kernel<P, COLS>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int vec_w = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int vec_h = F % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  ce_fwd_mma_kernel<P, COLS><<<(A + COLS - 1) / COLS, kWalkThreads, smem, st>>>(
+      h, w, b, labels, part, B, F, A, valid, vec_w, vec_h);
+  return cudaGetLastError();
 }
 
 template <int P>
 cudaError_t launch_fwd_mma(const float* h, const float* w, const float* b,
                            const long long* labels, float* part, int B, int F, int A, int valid,
                            cudaStream_t st) {
-  static size_t allowed[kMaxDevices] = {};
-  const size_t smem = fwd_mma_smem(F, P);
-  cudaError_t err = allow_smem((const void*)ce_fwd_mma_kernel<P>, smem, allowed);
-  if (err != cudaSuccess) return err;
-  const int vec_w = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const int vec_h = F % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-  ce_fwd_mma_kernel<P><<<(A + kTileCols - 1) / kTileCols, kWalkThreads, smem, st>>>(
-      h, w, b, labels, part, B, F, A, valid, vec_w, vec_h);
-  return cudaGetLastError();
+  if (fwd_cols(F, P) == 64)
+    return launch_fwd_mma<P, 64>(h, w, b, labels, part, B, F, A, valid, st);
+  return launch_fwd_mma<P, kTileCols>(h, w, b, labels, part, B, F, A, valid, st);
 }
 
 // One warp per row merges the row's nblk partials.
@@ -304,7 +338,13 @@ ce_merge_kernel(const float* __restrict__ part, float* __restrict__ lse,
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdRows = 32, kBwdCols = 64;
-constexpr int kBwdMaxF = 128;
+// F B2 takes in every precision: "highest" keeps W's chunk and its dW at
+// all of F in shared memory (170 KB at F = 256), the tensor cores a tile of
+// h's planes and its dh accumulator (ce_bwd_mma_sliced_kernel, 223 KB).
+constexpr int kBwdMaxF = 256;
+// F up to which a warp's registers hold dW of the chunk for all of F
+// (ce_bwd_mma_kernel); past it the sliced kernel.
+constexpr int kBwdSliceF = 128;
 
 struct BwdLayout {
   int wp, hp, dp;  // padded row lengths of the W, h and dl tiles
@@ -526,10 +566,248 @@ __host__ __device__ inline size_t bwd_mma_smem(int F, int P, int rows) {
          2 * planes * rows_pad * (fp + 8) + 4 * 5 * kBwdCols + 4 * (size_t)rows * dh_ld(F);
 }
 
+// The steps of a 64-row tile of ce_bwd_mma_sliced_kernel, in the arithmetic
+// that ce_bwd_mma_kernel writes out: eight warps; warp (wr, wc) = (warp % 4,
+// warp / 4) computes the logits of rows 16 wr.. at columns 32 wc.., then dW
+// of the f blocks fb0 + wc + 2 j (j < 4) at columns 16 wr.., and dh of rows
+// 16 wr.. at those f blocks (a block is 16 of F padded to a multiple of 16;
+// fb0 each slice of 8 blocks in turn). Both kernels write dW through
+// load_dw and store_dw.
+
+// dl = (exp(l - lse) - onehot) ct at the valid columns of the tile's live
+// rows (logits s at rows 16 wr.., columns 16 (2 wc + i).., the bias bcol
+// added here), into dl's planes; the column sums over the warp's 16 rows, in
+// a fixed shuffle order, into db_part[wr].
+template <int P>
+__device__ __forceinline__ void dl_tile(const float (&s)[2][2][4], const float (&bcol)[2][2][2],
+                                        const mma_tile::Planes& ls, float* db_part,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ ct,
+                                        const long long* __restrict__ labels, int g0, int r0,
+                                        int rows, int n0, int valid) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+  float colsum[2][2][2];  // the sums over the thread's 2 rows
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8 of the warp's 16
+    const int lr = 16 * wr + g + 8 * hr, row = g0 + r0 + lr;
+    const bool live = r0 + lr < rows;
+    const float row_lse = live ? lse[row] : 0.0f;
+    const float row_ct = live ? ct[row] : 0.0f;
+    const long long lbl = live ? labels[row] : -1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int c = 16 * (2 * wc + i) + 8 * t + 2 * q;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + c + e;
+          d[e] = 0.0f;
+          if (live && col < valid) {
+            const float pr = expf(s[i][t][2 * hr + e] + bcol[i][t][e] - row_lse);
+            d[e] = (pr - (col == lbl ? 1.0f : 0.0f)) * row_ct;
+          }
+          colsum[i][t][e] = hr == 0 ? d[e] : colsum[i][t][e] + d[e];
+        }
+        mma_tile::store_split2<P>(ls, lr * ls.ld + c, d[0], d[1]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = colsum[i][t][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (g == 0) db_part[wr * kBwdCols + 16 * (2 * wc + i) + 8 * t + 2 * q + e] = v;
+      }
+}
+
+// dwa[j] += h^T dl over the tile's rows r0.., at f block fb0 + wc + 2 j and
+// columns 16 wr..; "high"'s cross passes apart, added once (mma_tile.cuh).
+template <int P>
+__device__ __forceinline__ void dw_tile(float (&dwa)[4][2][4], const mma_tile::Planes& ls,
+                                        const mma_tile::Planes& hs, int r0, int fb0, int nfb) {
+  using namespace mma_tile;
+  const int warp = threadIdx.x / 32, wr = warp % 4, wc = warp / 4;
+  float dwx[4][2][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < kMmaRows; k0 += 16) {
+    Frag b;
+    load_b<P>(b, ls, k0, 16 * wr);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int fb = fb0 + wc + 2 * j;
+      if (fb < nfb) {
+        Frag a;
+        load_a_trans<P>(a, hs, r0 + k0, 16 * fb);
+        mma_pair<P>(dwa[j], dwx[j], a, b);
+      }
+    }
+  }
+  fold<P>(dwa, dwx);
+}
+
+// dh += dl W^T over the chunk's columns at rows r0 + 16 wr.. and f blocks
+// fb0 + wc + 2 j, into the accumulator (row stride ldd), each entry owned
+// by one thread.
+template <int P>
+__device__ __forceinline__ void dh_tile(float* dh_s, int ldd, const mma_tile::Planes& ls,
+                                        const mma_tile::Planes& ws, int r0, int rows, int fb0,
+                                        int nfb, int fp) {
+  using namespace mma_tile;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+  float dha[4][2][4] = {}, dhx[4][2][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < kBwdCols; k0 += 16) {
+    Frag a;
+    load_a<P>(a, ls, 16 * wr, k0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int fb = fb0 + wc + 2 * j;
+      if (fb < nfb) {
+        Frag b;
+        load_b_trans<P>(b, ws, 16 * fb, k0);
+        mma_pair<P>(dha[j], dhx[j], a, b);
+      }
+    }
+  }
+  fold<P>(dha, dhx);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + 16 * wr + g + 8 * hr;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int f = 16 * (fb0 + wc + 2 * j) + 8 * t + 2 * q;
+        if (r < rows && f < fp) {  // columns F..fp of W's planes are 0
+          float2* acc = reinterpret_cast<float2*>(dh_s + r * ldd + f);
+          float2 v = *acc;
+          v.x += dha[j][t][2 * hr];
+          v.y += dha[j][t][2 * hr + 1];
+          *acc = v;
+        }
+      }
+    }
+}
+
+// The thread's entries of dW: rows f = 16 (fb0 + wc + 2 j) + g + 8 hr,
+// columns n0 + 16 wr + 8 t + 2 q + e; `fn` (f, col, j, hr, t, e) is called
+// for those with f < F and col < A.
+template <class Fn>
+__device__ __forceinline__ void for_dw_entries(int fb0, int F, int A, int n0, Fn&& fn) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = 16 * (fb0 + wc + 2 * j) + g + 8 * hr;
+          const int col = n0 + 16 * wr + 8 * t + 2 * q + e;
+          if (f < F && col < A) fn(f, col, j, hr, t, e);
+        }
+}
+
+// The earlier launches' dW at the thread's entries (for_dw_entries), all
+// loads issued together: one wait on device memory, not one per entry.
+__device__ __forceinline__ void load_dw(float (&prev)[4][2][2][2], const float* __restrict__ dw,
+                                        int fb0, int F, int A, int n0) {
+  for_dw_entries(fb0, F, A, n0, [&](int f, int col, int j, int hr, int t, int e) {
+    prev[j][hr][t][e] = dw[(size_t)f * A + col];
+  });
+}
+
+// dW at the thread's entries: the sums dwa, 0 at columns >= valid, added to
+// prev (load_dw) when `accumulate`.
+__device__ __forceinline__ void store_dw(float* __restrict__ dw, const float (&dwa)[4][2][4],
+                                         const float (&prev)[4][2][2][2], int fb0, int F, int A,
+                                         int n0, int valid, int accumulate) {
+  for_dw_entries(fb0, F, A, n0, [&](int f, int col, int j, int hr, int t, int e) {
+    const float v = col < valid ? dwa[j][t][2 * hr + e] : 0.0f;
+    dw[(size_t)f * A + col] = accumulate ? prev[j][hr][t][e] + v : v;
+  });
+}
+
+// db of the tile at column c: dl_tile's parts of the 4 warp rows, in order.
+__device__ __forceinline__ float db_rows(const float* db_part, int c) {
+  return ((db_part[c] + db_part[kBwdCols + c]) + db_part[2 * kBwdCols + c]) +
+         db_part[3 * kBwdCols + c];
+}
+
+// The bias at this thread's logit columns n0 + 16 (2 wc + i) + 8 t + 2 q + e,
+// 0 at >= valid.
+__device__ __forceinline__ void bias_cols(float (&bcol)[2][2][2], const float* __restrict__ bias,
+                                          int n0, int valid) {
+  const int q = threadIdx.x % 4, wc = threadIdx.x / 32 / 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 16 * (2 * wc + i) + 8 * t + 2 * q + e;
+        bcol[i][t][e] = col < valid ? bias[col] : 0.0f;
+      }
+}
+
+// The logits of the tile's rows r0 + 16 wr.. at the chunk's columns
+// 16 (2 wc + i).., over all of F; "high"'s cross passes apart in sx.
+template <int P>
+__device__ __forceinline__ void logits_mma(float (&s)[2][2][4], const mma_tile::Planes& hs,
+                                           const mma_tile::Planes& ws, int r0, int fp) {
+  using namespace mma_tile;
+  const int warp = threadIdx.x / 32, wr = warp % 4, wc = warp / 4;
+  float sx[2][2][4] = {};
+  for (int k0 = 0; k0 < fp; k0 += 16) {
+    Frag a;
+    load_a<P>(a, hs, r0 + 16 * wr, k0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      Frag b;
+      load_b<P>(b, ws, k0, 16 * (2 * wc + i));
+      mma_pair<P>(s[i], sx[i], a, b);
+    }
+  }
+  fold<P>(s, sx);
+}
+
+// h's rows g0.. (rows of them, padded with zero rows to rows_pad) split into
+// the planes hs once.
+template <int P>
+__device__ __forceinline__ void split_rows(const mma_tile::Planes& hs, const float* __restrict__ h,
+                                           int g0, int rows, int rows_pad, int F, int fp) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < rows_pad * fp / 2; e += kThreads) {
+    const int r = e / (fp / 2), k = 2 * (e % (fp / 2));
+    float x0 = 0.0f, x1 = 0.0f;
+    if (r < rows) {
+      const float* src = h + (size_t)(g0 + r) * F;
+      x0 = k < F ? src[k] : 0.0f;
+      x1 = k + 1 < F ? src[k + 1] : 0.0f;
+    }
+    mma_tile::store_split2<P>(hs, r * hs.ld + k, x0, x1);
+  }
+}
+
+// F <= kBwdSliceF: all rows of the launch's group at once; per chunk its
+// tiles in turn, dW of the chunk in the warps' registers across them.
 // Eight warps; warp (wr, wc) = (warp % 4, warp / 4). Per tile of 64 rows it
 // computes the logits of rows 16 wr.. at columns 32 wc.., then dW of the
 // f blocks wc + 2 j (j < 4) at columns 16 wr.., and dh of rows 16 wr.. at
-// those f blocks (a block is 16 of F padded to a multiple of 16).
+// those f blocks (a block is 16 of F padded to a multiple of 16). The tile
+// steps are the helpers' above, written out: through the helpers, with the
+// same arithmetic and results, it ran 6.3% slower in "default" at the
+// train point (1.5-5% for each of the logits, dl and dW steps alone).
 template <int P>
 __global__ void __launch_bounds__(kThreads, 1)
 ce_bwd_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
@@ -727,27 +1005,119 @@ ce_bwd_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
       __syncthreads();  // before the next tile overwrites dl and the db parts
     }
 
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int f = 16 * (wc + 2 * j) + g + 8 * hr;
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + 16 * wr + 8 * t + 2 * q + e;
-            if (f < F && col < A) {
-              const float v = col < valid ? dwa[j][t][2 * hr + e] : 0.0f;
-              float* out = dw + (size_t)f * A + col;
-              *out = accumulate ? *out + v : v;
-            }
-          }
-      }
+    float prev[4][2][2][2] = {};
+    if (accumulate) load_dw(prev, dw, 0, F, A, n0);
+    store_dw(dw, dwa, prev, 0, F, A, n0, valid, accumulate);
     if (tid < kBwdCols && n0 + tid < A) {
       const int col = n0 + tid;
       const float v = col < valid ? db_s[tid] : 0.0f;
       db[col] = accumulate ? db[col] + v : v;
+    }
+  }
+  __syncthreads();
+  float* out = dh_part + (size_t)blockIdx.x * B * F;
+  for (int i = tid; i < rows * F; i += kThreads)
+    out[(size_t)g0 * F + i] = dh_s[i / F * ldd + i % F];
+}
+
+// Bytes of shared memory of ce_bwd_mma_sliced_kernel: W's and dl's planes,
+// the planes of one tile of h, db per warp row, the tile's dh accumulator.
+__host__ __device__ inline size_t bwd_mma_sliced_smem(int F, int P) {
+  const size_t fp = (F + 15) / 16 * 16, planes = P == 1 ? 2 : 1;
+  return 2 * planes * (fp + kMmaRows) * kMmaLd + 2 * planes * kMmaRows * (fp + 8) +
+         4 * 4 * kBwdCols + 4 * (size_t)kMmaRows * dh_ld(F);
+}
+
+// F > kBwdSliceF: one tile of at most 64 rows a launch, so the tile's dl is
+// computed once per chunk and dW and dh go over F in slices of kBwdSliceF
+// (8 f blocks, the dW accumulators a warp holds), written per slice. W's
+// chunk goes through registers into its planes, its loads in flight while
+// the block computes the chunk before it (a staging buffer, 64 KB at
+// F = 256, does not fit beside h's planes and dh).
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+ce_bwd_mma_sliced_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                         const float* __restrict__ bias, const long long* __restrict__ labels,
+                         const float* __restrict__ lse, const float* __restrict__ ct,
+                         float* __restrict__ dw, float* __restrict__ db,
+                         float* __restrict__ dh_part, int B, int F, int A, int valid, int g0,
+                         int g1, int accumulate) {
+  using namespace mma_tile;
+  constexpr bool LO = P == 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int fp = (F + 15) / 16 * 16, nfb = fp / 16, rows = g1 - g0;
+  unsigned char* p = smem_raw;
+  auto planes = [&](int n_rows, int ld) {
+    Planes s{reinterpret_cast<bf16*>(p), nullptr, ld};
+    p += 2 * (size_t)n_rows * ld;
+    if (LO) {
+      s.lo = reinterpret_cast<bf16*>(p);
+      p += 2 * (size_t)n_rows * ld;
+    }
+    return s;
+  };
+  const Planes ws = planes(fp, kMmaLd);        // W's chunk (fp, kBwdCols), columns >= valid 0
+  const Planes ls = planes(kMmaRows, kMmaLd);  // dl of the tile (kMmaRows, kBwdCols)
+  const Planes hs = planes(kMmaRows, fp + 8);  // h's rows g0..g1 (kMmaRows, fp)
+  float* db_part = reinterpret_cast<float*>(p);  // (4, kBwdCols)
+  float* dh_s = db_part + 4 * kBwdCols;          // (rows, ldd)
+  const int ldd = dh_ld(F);
+
+  const int tid = threadIdx.x;
+  const int n_chunks = (A + kBwdCols - 1) / kBwdCols;
+  split_rows<P>(hs, h, g0, rows, kMmaRows, F, fp);
+  for (int i = tid; i < rows * ldd; i += kThreads) dh_s[i] = 0.0f;
+
+  // A chunk's W into registers, all of the thread's loads issued together
+  // (rows k = tid / 32 + 8 i, columns c = 2 (tid % 32)), in flight while the
+  // block computes the chunk before it; columns >= valid and rows >= F as 0.
+  constexpr int kLoads = kBwdMaxF * kBwdCols / 2 / kThreads, kRowStep = kThreads / (kBwdCols / 2);
+  const int kr = tid / (kBwdCols / 2), c = 2 * (tid % (kBwdCols / 2));
+  float x[kLoads][2];
+  auto fetch = [&](int chunk) {
+    const int n0 = chunk * kBwdCols;
+    const bool ok0 = n0 + c < valid, ok1 = n0 + c + 1 < valid;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int k = kr + i * kRowStep;
+      const float* src = w + (size_t)(k < F ? k : 0) * A + n0 + c;
+      x[i][0] = k < F && ok0 ? src[0] : 0.0f;
+      x[i][1] = k < F && ok1 ? src[1] : 0.0f;
+    }
+  };
+  if ((int)blockIdx.x < n_chunks) fetch(blockIdx.x);
+
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int n0 = chunk * kBwdCols;
+    __syncthreads();  // the previous chunk's readers are done
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int k = kr + i * kRowStep;
+      if (k < fp) store_split2<P>(ws, k * ws.ld + c, x[i][0], x[i][1]);
+    }
+    __syncthreads();  // W's planes are ready
+    if (chunk + (int)gridDim.x < n_chunks) fetch(chunk + gridDim.x);
+
+    float bcol[2][2][2];
+    bias_cols(bcol, bias, n0, valid);
+    float s[2][2][4] = {};
+    logits_mma<P>(s, hs, ws, 0, fp);
+    dl_tile<P>(s, bcol, ls, db_part, lse, ct, labels, g0, 0, rows, n0, valid);
+    __syncthreads();  // dl's planes and the db parts are complete
+    if (tid < kBwdCols && n0 + tid < A) {
+      const int col = n0 + tid;
+      const float v = col < valid ? db_rows(db_part, tid) : 0.0f;
+      db[col] = accumulate ? db[col] + v : v;
+    }
+    for (int fb0 = 0; fb0 < nfb; fb0 += kBwdSliceF / 16) {
+      // the earlier launches' dW of the slice, its loads in flight during
+      // the products
+      float prev[4][2][2][2] = {};
+      if (accumulate) load_dw(prev, dw, fb0, F, A, n0);
+      float dwa[4][2][4] = {};
+      dw_tile<P>(dwa, ls, hs, 0, fb0, nfb);
+      store_dw(dw, dwa, prev, fb0, F, A, n0, valid, accumulate);
+      dh_tile<P>(dh_s, ldd, ls, ws, 0, rows, fb0, nfb, fp);
     }
   }
   __syncthreads();
@@ -765,8 +1135,11 @@ int bwd_blocks(int A) {
   return n_chunks < sms ? n_chunks : sms;
 }
 
-// Rows per launch of ce_bwd_mma_kernel: whole tiles, as many as fit.
+// Rows per launch of ce_bwd_mma_kernel: whole tiles, as many as fit; of
+// ce_bwd_mma_sliced_kernel (F > kBwdSliceF): one tile.
 int bwd_mma_group_rows(int B, int F, int P) {
+  if (F > kBwdSliceF)
+    return bwd_mma_sliced_smem(F, P) > kMaxSmem ? 0 : (kMmaRows < B ? kMmaRows : B);
   const size_t fixed = bwd_mma_smem(F, P, 0), tile = bwd_mma_smem(F, P, kMmaRows) - fixed;
   if (fixed + tile > kMaxSmem) return 0;
   const size_t rows = (kMaxSmem - fixed) / tile * kMmaRows;
@@ -784,12 +1157,14 @@ int bwd_group_rows(int B, int F) {
 }
 
 // "highest" (P == 0) runs ce_bwd_kernel on the CUDA cores, "high" and
-// "default" ce_bwd_mma_kernel on the tensor cores.
+// "default" ce_bwd_mma_kernel (or past kBwdSliceF ce_bwd_mma_sliced_kernel)
+// on the tensor cores.
 template <int P>
 cudaError_t launch_bwd(const float* h, const float* w, const float* b, const long long* labels,
                        const float* lse, const float* ct, float* dw, float* db, float* dh,
                        float* dh_part, int B, int F, int A, int valid, cudaStream_t st) {
   static size_t allowed[kMaxDevices] = {};  // per instantiation: one kernel
+  static size_t allowed_sliced[kMaxDevices] = {};
   cudaError_t err = cudaSuccess;
   const int nblk = bwd_blocks(A);
   const int rows = P == 0 ? bwd_group_rows(B, F) : bwd_mma_group_rows(B, F, P);
@@ -803,6 +1178,12 @@ cudaError_t launch_bwd(const float* h, const float* w, const float* b, const lon
       if (err != cudaSuccess) return err;
       ce_bwd_kernel<<<nblk, kThreads, smem, st>>>(h, w, b, labels, lse, ct, dw, db, dh_part, B, F,
                                                   A, valid, g0, g1, g0 > 0);
+    } else if (F > kBwdSliceF) {
+      const size_t smem = bwd_mma_sliced_smem(F, P);
+      err = allow_smem((const void*)ce_bwd_mma_sliced_kernel<P>, smem, allowed_sliced);
+      if (err != cudaSuccess) return err;
+      ce_bwd_mma_sliced_kernel<P><<<nblk, kThreads, smem, st>>>(
+          h, w, b, labels, lse, ct, dw, db, dh_part, B, F, A, valid, g0, g1, g0 > 0);
     } else {
       const size_t smem = bwd_mma_smem(F, P, g1 - g0);
       err = allow_smem((const void*)ce_bwd_mma_kernel<P>, smem, allowed);
@@ -820,22 +1201,25 @@ cudaError_t launch_bwd(const float* h, const float* w, const float* b, const lon
 
 }  // namespace
 
-// Floats of scratch that fused_ce_fwd needs for (B, A): per-row partials.
-extern "C" long long fused_ce_fwd_scratch(int B, int A) {
-  return 3LL * B * ((A + kTileCols - 1) / kTileCols);
+// Floats of scratch that fused_ce_fwd needs for (B, F, A) at `precision`:
+// per-row partials, one per column block.
+extern "C" long long fused_ce_fwd_scratch(int B, int F, int A, int precision) {
+  const int cols = fwd_cols(F, precision);
+  return 3LL * B * ((A + cols - 1) / cols);
 }
 
 // Launches B1 on `stream`: lse and label logit (B) of h W + b masked at
-// columns >= valid. In "high" and "default" F may be at most 128. Returns
-// cudaGetLastError() (0 on success).
+// columns >= valid. In "high" and "default" F may be at most
+// kWalkNarrowMaxF (256). Returns cudaGetLastError() (0 on success).
 extern "C" int fused_ce_fwd(const float* h, const float* w, const float* b,
                             const long long* labels, float* lse, float* g, float* scratch, int B,
                             int F, int A, int valid, int precision, void* stream) {
   if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2 ||
-      (precision != 0 && F > mma_tile::kWalkMaxF))
+      (precision != 0 && F > mma_tile::kWalkNarrowMaxF))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
+  const int cols = fwd_cols(F, precision);
+  const dim3 grid((A + cols - 1) / cols, (B + kTileRows - 1) / kTileRows);
   cudaError_t err;
   if (precision == 1) {
     err = launch_fwd_mma<1>(h, w, b, labels, scratch, B, F, A, valid, st);
@@ -858,7 +1242,8 @@ extern "C" long long fused_ce_bwd_scratch(int B, int F, int A) {
 }
 
 // Launches B2 on `stream`: dW (F, A), db (A) and dh (B, F) of
-// sum_i ct[i] * CE_i. F may be at most 128. Returns cudaGetLastError().
+// sum_i ct[i] * CE_i. F may be at most kBwdMaxF (256). Returns
+// cudaGetLastError().
 extern "C" int fused_ce_bwd(const float* h, const float* w, const float* b,
                             const long long* labels, const float* lse, const float* ct, float* dw,
                             float* db, float* dh, float* scratch, int B, int F, int A, int valid,

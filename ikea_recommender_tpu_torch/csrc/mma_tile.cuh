@@ -251,39 +251,51 @@ __device__ __forceinline__ void split_cols(const Planes& ws, const float* stage,
 // contiguous. It splits them into planes once, columns >= valid and rows
 // F..fp as 0, so nothing there (NaN included) reaches a product; each head
 // comes through the fp32 staging buffer by cp.async. Then it walks all B
-// rows of h (B, F) in tiles of kWalkRows: a tile arrives by cp.async into
-// the staging buffer while the block computes the tile before it, and is
-// split into planes as it lands. Eight warps; warp (wr, wc) = (warp % 4,
-// warp / 4) computes rows 16 wr.. of a tile at the block's columns
-// COLS / 2 * wc + 16 i + 8 t + 2 q + e (i < COLS / 32; g = lane / 4,
+// rows of h (B, F) in tiles of kWalkRows. A tile arrives by cp.async in
+// column slices of min(F, kWalkSlice) floats a row (one slice up to
+// F = 128), each in flight while the block splits the slice before it into
+// the tile's planes or computes the tile before it, so the staging buffer
+// holds two slices (64 KB at most) at any F. Eight warps; warp (wr, wc) =
+// (warp % 4, warp / 4) computes rows 16 wr.. of a tile at the block's
+// columns COLS / 2 * wc + 16 i + 8 t + 2 q + e (i < COLS / 32; g = lane / 4,
 // q = lane % 4): per tile and head k, acc[i][t][2 hr + e] holds (h W_k) at
 // row g + 8 hr of those 16, summed over F padded to 16 by mma_pair (k
 // chunks outer, column blocks inner). The walk hands them to the epilogue,
 // epi(k, m0, acc) for k = 0..K-1, called by every thread of the block; the
 // call may __syncthreads, and the walk's next write to shared memory comes
 // after a __syncthreads of its own, so the epilogue may read its shared
-// memory after its barrier.
-constexpr int kWalkThreads = 256, kWalkRows = 64;
-// F the walk takes: K = 1 head at F = 128 in "high" holds 172 KB (B1).
+// memory after its barrier. MAXF is the largest F the kernel is launched
+// with: at MAXF <= kWalkSlice a tile is always one slice, and the compiler
+// drops the slices' index arithmetic (at the 128 registers of two blocks
+// an SM, B5 and B6 would otherwise spill).
+constexpr int kWalkThreads = 256, kWalkRows = 64, kWalkSlice = 128;
+// F the walk takes at 128 columns a block (B1, B5, B6): K = 1 head at
+// F = 128 in "high" holds 172 KB.
 constexpr int kWalkMaxF = 128;
+// F it takes at 64 columns a block (B1 past kWalkMaxF): K = 1 head at
+// F = 256 in "high" holds 202 KB, the planes of a tile of h 66 KB of them.
+constexpr int kWalkNarrowMaxF = 256;
 
 // Bytes of shared memory of the walk (the epilogue's come after them): the
 // K heads' planes of W's columns, the planes of a tile of h, and the fp32
-// staging buffer, which holds one head's (F, COLS) columns or two tiles of
-// h (kWalkRows, F). A multiple of 16.
+// staging buffer, which holds one head's (F, COLS) columns or two
+// (kWalkRows, min(F, kWalkSlice)) slices of h. A multiple of 16.
 __host__ __device__ inline size_t walk_smem(int F, int P, int K, int cols) {
   const size_t fp = (F + 15) / 16 * 16, planes = P == 1 ? 2 : 1;
+  const size_t w_stage = 4 * (size_t)F * cols;
+  const size_t h_stage = 4 * (size_t)(F < kWalkSlice ? F : kWalkSlice) * 2 * kWalkRows;
   return 2 * planes * (K * fp * (cols + 8) + kWalkRows * (fp + 8)) +
-         4 * (size_t)F * 2 * kWalkRows;
+         (w_stage > h_stage ? w_stage : h_stage);
 }
 
-template <int P, int COLS, class Epi>
+template <int P, int COLS, class Epi, int MAXF = kWalkMaxF>
 __device__ __forceinline__ void head_walk(const float* __restrict__ h,
                                           const float* __restrict__ w, int B, int F, int A,
                                           int K, int valid, int vec_w, int vec_h,
                                           unsigned char* smem, Epi& epi) {
   static_assert(COLS == 128 || COLS == 64 || COLS == 32, "a warp takes 16, 32 or 64 columns");
-  constexpr bool LO = P == 1;
+  static_assert(MAXF <= kWalkNarrowMaxF, "W's and h's planes fit up to kWalkNarrowMaxF");
+  constexpr bool LO = P == 1, ONE_SLICE = MAXF <= kWalkSlice;
   constexpr int NI = COLS / 32, LD = COLS + 8;
   const int fp = (F + 15) / 16 * 16;
   const size_t head = (size_t)fp * LD;  // elements of one head's plane
@@ -299,7 +311,7 @@ __device__ __forceinline__ void head_walk(const float* __restrict__ h,
   };
   const Planes ws = planes(K * head, LD);                   // K x (fp, COLS), >= valid 0
   const Planes hs = planes(kWalkRows * (size_t)(fp + 8), fp + 8);  // the tile (64, fp)
-  float* stage = reinterpret_cast<float*>(p);  // (F, COLS) or 2 x (64, F)
+  float* stage = reinterpret_cast<float*>(p);  // (F, COLS) or 2 x (64, min(F, kWalkSlice))
   auto head_planes = [&](int k) {
     return Planes{ws.hi + k * head, LO ? ws.lo + k * head : nullptr, LD};
   };
@@ -314,39 +326,49 @@ __device__ __forceinline__ void head_walk(const float* __restrict__ h,
     __syncthreads();  // the staging buffer is free
   }
 
-  // rows m0.. of h (a contiguous run of whole rows) into buffer tile % 2;
-  // with vec_h (F % 4 == 0, h 16-byte aligned) in 16-byte copies
-  const int n_tiles = (B + kWalkRows - 1) / kWalkRows;
-  auto fetch = [&](int tile) {
-    const int m0 = tile * kWalkRows, n = (B - m0 < kWalkRows ? B - m0 : kWalkRows) * F;
-    const float* src = h + (size_t)m0 * F;
-    float* dst = stage + (tile % 2) * kWalkRows * F;
+  // unit u = (tile u / n_sl, slice u % n_sl): columns c0 = sl * (u % n_sl)..
+  // of the tile's rows, sw of them, packed (rows, sw) into buffer u % 2;
+  // with vec_h (F % 4 == 0, h 16-byte aligned; c0 and sw are then multiples
+  // of 4) in 16-byte copies
+  const int sl = ONE_SLICE || F < kWalkSlice ? F : kWalkSlice;
+  const int n_sl = ONE_SLICE ? 1 : (F + sl - 1) / sl;
+  const int n_units = (B + kWalkRows - 1) / kWalkRows * n_sl;
+  auto fetch = [&](int u) {
+    const int m0 = u / n_sl * kWalkRows, c0 = u % n_sl * sl;
+    const int sw = F - c0 < sl ? F - c0 : sl;
+    const int n = (B - m0 < kWalkRows ? B - m0 : kWalkRows) * sw;
+    const float* src = h + (size_t)m0 * F + c0;
+    float* dst = stage + (u % 2) * kWalkRows * sl;
+    auto at = [&](int i) { return src + (ONE_SLICE ? (size_t)i : (size_t)(i / sw) * F + i % sw); };
     if (vec_h) {
-      for (int i = 4 * tid; i < n; i += 4 * kWalkThreads) cp_async16(dst + i, src + i);
+      for (int i = 4 * tid; i < n; i += 4 * kWalkThreads) cp_async16(dst + i, at(i));
     } else {
-      for (int i = tid; i < n; i += kWalkThreads) cp_async4(dst + i, src + i);
+      for (int i = tid; i < n; i += kWalkThreads) cp_async4(dst + i, at(i));
     }
     cp_async_commit();
   };
   fetch(0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int m0 = tile * kWalkRows;
-    if (tile + 1 < n_tiles) {
-      fetch(tile + 1);
+  for (int u = 0; u < n_units; ++u) {
+    if (u + 1 < n_units) {
+      fetch(u + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // the tile has landed; the previous tile's readers are done
-    const float* cur = stage + (tile % 2) * kWalkRows * F;
-    for (int e = tid; e < kWalkRows * fp / 2; e += kWalkThreads) {
-      const int r = e / (fp / 2), c = 2 * (e % (fp / 2));
+    __syncthreads();  // the slice has landed; the previous slice's readers are done
+    const int m0 = u / n_sl * kWalkRows, c0 = u % n_sl * sl;
+    const bool last = u % n_sl == n_sl - 1;
+    const int sw = last ? F - c0 : sl, swp = last ? fp - c0 : sl;  // swp: sw padded to 16
+    const float* cur = stage + (u % 2) * kWalkRows * sl;
+    for (int e = tid; e < kWalkRows * swp / 2; e += kWalkThreads) {
+      const int r = e / (swp / 2), c = 2 * (e % (swp / 2));
       const bool live = m0 + r < B;
-      store_split2<P>(hs, r * hs.ld + c, live && c < F ? cur[r * F + c] : 0.0f,
-                      live && c + 1 < F ? cur[r * F + c + 1] : 0.0f);
+      store_split2<P>(hs, r * hs.ld + c0 + c, live && c < sw ? cur[r * sw + c] : 0.0f,
+                      live && c + 1 < sw ? cur[r * sw + c + 1] : 0.0f);
     }
     __syncthreads();
-
+    if (!last) continue;
+    // the tile's planes are complete: its products, head by head
     for (int k = 0; k < K; ++k) {
       const Planes wk = head_planes(k);
       float acc[NI][2][4] = {};

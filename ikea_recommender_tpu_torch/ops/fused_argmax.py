@@ -42,7 +42,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ikea_recommender_tpu_torch.ops import build
-from ikea_recommender_tpu_torch.ops.fused_ce import MAX_MMA_FEATURES, PRECISIONS, _dot
+from ikea_recommender_tpu_torch.ops.fused_ce import PRECISIONS, _dot
 
 _NEG = -1e30
 
@@ -50,9 +50,12 @@ _NEG = -1e30
 LAUNCHES = 0  # B5, fused_linear_argmax
 WEIGHTED_LAUNCHES = 0  # B6, fused_weighted_multihead_argmax
 
-# B6 in "high" and "default" keeps the planes of all K heads' columns in
-# shared memory; it takes K up to this (the reference's "K is tiny (<=5)")
-# and F up to MAX_MMA_FEATURES, as B5 does.
+# B5 and B6 in "high" and "default" keep W's columns and a tile of h in
+# shared memory as bf16 planes (the head walk of csrc/mma_tile.cuh, which
+# B1 shares at 64 columns a block past F = 128); they take F up to this, and
+# B6 K heads up to MAX_MMA_HEADS (the reference's "K is tiny (<=5)"). No
+# repo config runs sqn or smorl with hidden above 128 (ROADMAP B.3).
+MAX_MMA_FEATURES = 128
 MAX_MMA_HEADS = 5
 
 _FNS = None

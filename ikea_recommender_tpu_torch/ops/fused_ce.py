@@ -43,13 +43,12 @@ PRECISIONS = ("highest", "high", "default")
 LAUNCHES = 0  # B1, the forward
 BWD_LAUNCHES = 0  # B2, the backward
 
-# The backward kernel keeps its (rows, F) dh part next to its tiles in
-# shared memory; it takes F up to this.
-MAX_BWD_FEATURES = 128
-# The tensor-core kernels of "high" and "default" (B1 here, B5 and B6 in
-# ops/fused_argmax.py) keep W's columns and a tile of h in shared memory as
-# bf16 planes; they take F up to this, as B2 does.
-MAX_MMA_FEATURES = 128
+# F the kernels take: B2 in every precision keeps a tile's (rows, F) dh part
+# and h's rows at all of F in shared memory, and B1 in "high" and "default"
+# W's columns and a tile of h as bf16 planes. 256 = 2 H of bidir_gru4rec at
+# hidden 128, the widest head of the repo's configs; past it they raise
+# (ROADMAP B.3). B1 in "highest" takes any F.
+MAX_FEATURES = 256
 
 _FNS = None
 
@@ -153,7 +152,7 @@ def _kernel_fns():
         bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         bwd.restype = i32
         fwd_scratch = lib.fused_ce_fwd_scratch
-        fwd_scratch.argtypes = [i32, i32]
+        fwd_scratch.argtypes = [i32] * 4
         fwd_scratch.restype = i64
         bwd_scratch = lib.fused_ce_bwd_scratch
         bwd_scratch.argtypes = [i32, i32, i32]
@@ -173,17 +172,19 @@ def _launch_fwd(h, w, b, labels, valid_dim, precision):
     global LAUNCHES
     labels = _cuda_inputs(h, w, b, labels)
     (B, F), A = h.shape, w.shape[1]
-    if precision != "highest" and F > MAX_MMA_FEATURES:
+    if precision != "highest" and F > MAX_FEATURES:
         raise ValueError(
-            f"the fused_ce forward tensor-core kernel takes F <= {MAX_MMA_FEATURES} in "
-            f"{precision!r}, got F={F}"
+            f"the fused_ce forward tensor-core kernel takes F <= {MAX_FEATURES} in "
+            f"{precision!r}, got F={F} (ROADMAP B.3)"
         )
     fwd, _, fwd_scratch, _ = _kernel_fns()
     dev = h.device
     lse = torch.empty((B,), dtype=torch.float32, device=dev)
     lbl = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        scratch = torch.empty((fwd_scratch(B, A),), dtype=torch.float32, device=dev)
+        scratch = torch.empty(
+            (fwd_scratch(B, F, A, PRECISIONS.index(precision)),), dtype=torch.float32, device=dev
+        )
         err = fwd(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             lse.data_ptr(), lbl.data_ptr(), scratch.data_ptr(),
@@ -200,9 +201,9 @@ def _launch_bwd(h, w, b, labels, lse, ct, valid_dim, precision):
     global BWD_LAUNCHES
     labels = _cuda_inputs(h, w, b, labels)
     (B, F), A = h.shape, w.shape[1]
-    if F > MAX_BWD_FEATURES:
+    if F > MAX_FEATURES:
         raise ValueError(
-            f"the fused_ce backward kernel takes F <= {MAX_BWD_FEATURES}, got F={F}"
+            f"the fused_ce backward kernel takes F <= {MAX_FEATURES}, got F={F} (ROADMAP B.3)"
         )
     _, bwd, _, bwd_scratch = _kernel_fns()
     dev = h.device

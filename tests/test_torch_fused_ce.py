@@ -8,7 +8,8 @@ The case matrix is that of ``tests/test_fused_ce.py``: exact and ragged
 tails, padded columns (``valid_dim < A``), a whole block past
 ``valid_dim``, NaN in the padded columns of W, and the three precisions;
 the forward also at F = 128 and F = 24, the widest and a padded width of
-its tensor-core kernel.
+its tensor-core kernel, and at F = 256 and F = 200, which it takes in
+column slices of 128 (bidir_gru4rec's head at hidden 128).
 
 Tolerances. "highest" and "high" compute the same products on both sides
 (bf16 products are exact in fp32), so they differ only in summation order:
@@ -43,6 +44,7 @@ SHAPES = {  # (B, F, A, valid)
     "padded": (8, 16, 384, 300),
     "block-past-valid": (8, 16, 768, 200),  # the reference's 2nd 512-block is all pad
     "nan-padded": (8, 16, 384, 300),
+    "bidir-width": (8, 256, 300, 260),  # F = 2 H at hidden 128, ragged and padded
 }
 
 
@@ -101,11 +103,13 @@ def test_matches_reference(shape, precision):
 
 
 @pytest.mark.parametrize("precision", ["high", "default"])
-@pytest.mark.parametrize("F", [128, 24])
+@pytest.mark.parametrize("F", [128, 24, 256, 200])
 def test_forward_at_the_tensor_core_widths(F, precision):
     """B1's (lse, label logit) against the reference's forward kernel at the
-    widths its tensor-core kernel must take: F = 128, its limit, and F = 24,
-    which it pads with zeros to 32; a label at or past valid_dim counts 0."""
+    widths its tensor-core kernel must take: F = 128, the widest it stages
+    whole, F = 24, which it pads with zeros to 32, and F = 256 (its limit)
+    and F = 200, which it stages in slices of 128; a label at or past
+    valid_dim counts 0."""
     B, A, valid = 8, 300, 260
     h, w, b, labels, _ = _inputs(B, F, A, valid, nan_tail=True, seed=F)
     labels[0] = 270

@@ -153,6 +153,8 @@ CASES = {
     "gru4rec-fused-align8": dict(model="gru4rec", fused_ce=True, align=8),
     "gru4rec-frozen-pad": dict(model="gru4rec", fused_ce=True, train_padding_embed=False),
     "bidir-2layers": dict(model="bidir_gru4rec", fused_ce=True, gru_layers=2, dropout=0.0),
+    # hidden 128: the head input is F = 2 H = 256, the BidirGRU-128 width
+    "bidir-h128": dict(model="bidir_gru4rec", fused_ce=True, hidden_state_size=128, dropout=0.0),
     "gru4rec-bf16-moments": dict(model="gru4rec", fused_ce=True, mv_dtype="bfloat16"),
     "gru4rec-highest": dict(model="gru4rec", fused_ce=True, head_precision="highest"),
 }
@@ -160,10 +162,9 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_three_steps_match_reference(case):
-    kw = dict(CASES[case])
+    kw = {"embedding_size": 8, "hidden_state_size": 8, **CASES[case]}
     align, mv_dtype = kw.pop("align", 1), kw.pop("mv_dtype", None)
-    mc, jmc = _configs(A_SMALL, align, embedding_size=8, hidden_state_size=8,
-                       state_size=T, **kw)
+    mc, jmc = _configs(A_SMALL, align, state_size=T, **kw)
     assert mc.fused_ce == jmc.fused_ce == kw["fused_ce"]
     np_params = numpy_init_params(mc, seed=1)
     batches = _batches(3, B, A_SMALL, T, seed=2)
