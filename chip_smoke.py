@@ -24,8 +24,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    wherever the twin's two best differ by more; also "default",
    "highest", NaN in a padded catalog, one row, and exact ties on both
    sides of a tile edge and at the last valid column, which the lowest id
-   must win); B1, B2, B5 and B6 launched twice on each input must agree
-   bit for bit;
+   must win); B1, B2, B4, B5 and B6 launched twice on each input must
+   agree bit for bit;
 4. serving: gru4rec at the RetailRocket width (catalog 70852, E=H=64,
    T=10, one layer; random weights from a seed) answers 4 batches of 512
    seeded sessions through ``run.recommend.recommend_rows``. The launch
@@ -358,7 +358,10 @@ def kernels_gru_bwd():
             return gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
 
         got = kernel()
+        again = kernel()
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"gru_bwd at {(B, T, H)}: two launches on the same inputs differ")
         want = plain()
         rel = check_close(got, want, ("dxw", "dwh", "dbh"), f"gru_bwd at {(B, T, H)}")
         err = max_err(got, want)

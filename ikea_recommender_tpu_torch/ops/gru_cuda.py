@@ -159,17 +159,13 @@ def _kernel_fn():
     return _FN
 
 
-def _bwd_kernel_fns():
+def _bwd_kernel_fn():
     global _BWD_FN
     if _BWD_FN is None:
-        lib = build.load("gru_bwd")
-        fn = lib.gru_bwd
+        fn = build.load("gru_bwd").gru_bwd
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        parts = lib.gru_bwd_parts
-        parts.argtypes = [ctypes.c_int] * 3
-        parts.restype = ctypes.c_int
-        _BWD_FN = fn, parts
+        _BWD_FN = fn
     return _BWD_FN
 
 
@@ -198,26 +194,24 @@ def _launch_bwd(xw, wh, bh, mask, y, gy, g_hfin, reverse):
     global BWD_LAUNCHES
     B, T, H3 = xw.shape
     H = H3 // 3
-    fn, n_parts = _bwd_kernel_fns()
+    fn = _bwd_kernel_fn()
     dev = xw.device
     dxw = torch.empty_like(xw)
     dhw = torch.empty_like(xw)  # scratch: the step adjoints [da_r, da_z, dhn]
-    parts = torch.empty((n_parts(B, T, H), H + 1, H3), dtype=torch.float32, device=dev)
+    dwb = torch.empty((H + 1, H3), dtype=torch.float32, device=dev)  # [dW_h; db_h]
     with torch.cuda.device(dev):
         err = fn(
             xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
             None if mask is None else mask.data_ptr(),
             y.data_ptr(), gy.data_ptr(), g_hfin.data_ptr(),
-            dxw.data_ptr(), dhw.data_ptr(), parts.data_ptr(),
+            dxw.data_ptr(), dhw.data_ptr(), dwb.data_ptr(),
             B, T, H, int(reverse),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gru_bwd kernel launch failed with CUDA error {err}")
     BWD_LAUNCHES += 1
-    # the parts' sum is [dW_h; db_h], as the reference sums its per-tile ones
-    total = parts.sum(dim=0)
-    return dxw, total[:H], total[H]
+    return dxw, dwb[:H], dwb[H]
 
 
 def _cotangent(g, like):

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Time the PyTorch/CUDA port's GRU kernels, B3 (the recurrence, gru_fwd) and
+B4 (its adjoint, gru_bwd), on one NVIDIA GPU.
+
+    python3 scripts/torch_gru_times.py [--repo DIR] [--label NAME] [--sweep] [--kernels]
+
+Imports the port and ``chip_smoke``'s timers and inputs from DIR (by default
+this script's repository), runs each kernel on seeded inputs at the train
+point (B, T, H) = (256, 10, 64) and the bidir_gru4rec point (256, 10, 128),
+masked, both directions at the latter, holds it to its plain twin (max
+|kernel - twin| over max |twin|, per output) and prints one JSON line per
+case with its device time: 20 launches in one CUDA graph, median of 5
+replays, as ``chip_smoke.py`` "[kernels]" measures. ``--sweep`` adds the
+unmasked points at T = 1 and 20 (a call's fixed cost against its cost per
+step); ``--kernels`` adds each CUDA kernel's mean device time per call under
+torch.profiler (B4 launches two). Run it on a commit and on its parent in
+one call (parent, change, change, parent) to compare them on one card.
+"""
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+CASES = [  # (B, T, H, masked, reverse)
+    (256, 10, 64, True, False),
+    (256, 10, 128, True, False),
+    (256, 10, 128, True, True),
+]
+SWEEP = [(256, T, H, False, False) for H in (64, 128) for T in (1, 10, 20)]
+
+
+def kernel_us(fn, n=20):
+    """{kernel name: mean device us per call of fn} over n calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:
+            out[ev.key[:60]] = us / n
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    import torch
+
+    from chip_smoke import graph_ms, gru_case, rel_err
+    from ikea_recommender_tpu_torch.ops import gru_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    label = args.label or args.repo
+    for B, T, H, masked, reverse in CASES + (SWEEP if args.sweep else []):
+        xw, wh, bh, mask = gru_case(B, T, H, masked)
+        g = torch.Generator(device="cuda").manual_seed(T)
+        gy = torch.randn(B, T, H, device="cuda", generator=g)
+        ghf = torch.randn(B, H, device="cuda", generator=g)
+        with torch.no_grad():
+            y, hfin = gru_cuda.gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
+            fwd = gru_cuda._launch(xw, wh, bh, mask, reverse)
+            bwd = gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
+            want = gru_cuda.gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
+        torch.cuda.synchronize()
+        row = dict(
+            label=label, B=B, T=T, H=H, masked=masked, reverse=reverse,
+            b3_rel_err=max(rel_err(a, w) for a, w in zip(fwd, (y, hfin))),
+            b4_rel_err={n: rel_err(a, w) for a, w, n in zip(bwd, want, ("dxw", "dwh", "dbh"))},
+            b3_ms=graph_ms(lambda: gru_cuda._launch(xw, wh, bh, mask, reverse), 20),
+            b4_ms=graph_ms(
+                lambda: gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse), 20
+            ),
+            device=torch.cuda.get_device_name(0),
+        )
+        if args.kernels:
+            row["b4_kernel_us"] = kernel_us(
+                lambda: gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
+            )
+        print(f"[gru] {json.dumps(row)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

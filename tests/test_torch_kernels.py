@@ -60,14 +60,22 @@ SHAPES = [  # (B, T, H, masked, reverse): the serving point, then long, wide, od
     (64, 20, 512, True, True),
 ]
 
-BWD_SHAPES = [  # (B, T, H, masked, reverse) of B4's three layouts
-    (256, 10, 64, True, False),  # the train point: W_h and dW_h in shared memory
-    (256, 200, 64, True, True),
-    (256, 50, 256, False, False),  # W_h from L2, dW_h in per-block slices
-    (37, 9, 8, True, False),
-    (50, 6, 96, True, True),  # the widest H with W_h in shared memory
-    (3, 4, 128, True, False),  # W_h from L2, dW_h in shared memory
-    (9, 5, 1024, True, True),  # six rows per block
+BWD_SHAPES = [  # (B, T, H, masked, reverse) over B4's layouts: 2 rows a block and W_h
+    # in shared memory up to H = 128, 1 row and W_h from L2 above; 16-byte
+    # copies where H % 4 == 0, else 4-byte
+    (256, 10, 64, True, False),  # the train point
+    (256, 10, 128, True, False),  # the bidir point, both directions: the widest
+    (256, 10, 128, True, True),  # W_h in shared memory
+    (256, 200, 64, True, True),  # long sequences, reverse direction
+    (256, 50, 256, False, False),  # W_h from L2, unmasked
+    (37, 9, 8, True, False),  # B odd: a block's second row is padding
+    (50, 6, 96, True, True),
+    (3, 4, 128, True, False),  # B odd at the widest W_h in shared memory
+    (9, 5, 1024, True, True),  # the widest H the kernel takes
+    (37, 7, 50, True, True),  # H % 4 != 0: 4-byte copies, W_h in shared memory
+    (7, 3, 130, True, False),  # H % 4 != 0 with W_h from L2
+    (64, 1, 64, True, False),  # T = 1: only the forward's first step
+    (64, 1, 64, False, True),
 ]
 
 CE_SHAPES = [  # (B, F, A, valid, precision, nan_tail)
@@ -134,13 +142,7 @@ def test_gru_fwd_matches_twin(cuda_device, B, T, H, masked, reverse):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,masked,reverse", BWD_SHAPES)
 def test_gru_bwd_matches_twin(cuda_device, B, T, H, masked, reverse):
-    xw, wh, bh, mask = to_torch(
-        *gru_inputs(B, T, H, seed=B + H, masked=masked), device=cuda_device
-    )
-    g = torch.Generator(device=cuda_device).manual_seed(T)
-    gy = torch.randn(B, T, H, device=cuda_device, generator=g)
-    ghf = torch.randn(B, H, device=cuda_device, generator=g)
-    y, _ = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
+    xw, wh, bh, mask, y, gy, ghf = _bwd_case(B, T, H, masked, reverse, cuda_device)
     before = gru_cuda.BWD_LAUNCHES
     got = gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
     torch.cuda.synchronize()
@@ -148,6 +150,50 @@ def test_gru_bwd_matches_twin(cuda_device, B, T, H, masked, reverse):
     want = gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
     for a, w, name in zip(got, want, ("dxw", "dwh", "dbh")):
         _assert_close(a, w, name)
+
+
+def _bwd_case(B, T, H, masked, reverse, device):
+    xw, wh, bh, mask = to_torch(*gru_inputs(B, T, H, seed=B + H, masked=masked), device=device)
+    g = torch.Generator(device=device).manual_seed(T)
+    gy = torch.randn(B, T, H, device=device, generator=g)
+    ghf = torch.randn(B, H, device=device, generator=g)
+    y, _ = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
+    return xw, wh, bh, mask, y, gy, ghf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bwd_blocks_masked_at_some_steps(cuda_device, reverse):
+    """Blocks whose rows are all masked at a step only carry dh there: rows
+    0-1 run 2 steps, 2-3 all 6, 4-5 none, 6 (a block of its own) 3. The
+    masked steps' dxw must be the twin's zeros, and all else the twin's."""
+    B, T, H = 7, 6, 64
+    xw, wh, bh, _, _, gy, ghf = _bwd_case(B, T, H, False, reverse, cuda_device)
+    lens = torch.tensor([2, 2, 6, 6, 0, 0, 3], device=cuda_device)
+    mask = (torch.arange(T, device=cuda_device)[None, :] < lens[:, None]).float()
+    y, _ = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
+    got = gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
+    torch.cuda.synchronize()
+    want = gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
+    for a, w, name in zip(got, want, ("dxw", "dwh", "dbh")):
+        _assert_close(a, w, name)
+    assert torch.equal(got[0][mask == 0], torch.zeros_like(got[0][mask == 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,H,masked,reverse",
+    [(256, 10, 64, True, False), (256, 10, 128, True, False), (256, 10, 128, True, True)],
+)
+def test_gru_bwd_is_bit_identical_over_two_launches(cuda_device, B, T, H, masked, reverse):
+    """At the train and bidir points two launches on the same inputs give the
+    same dxw, dW_h and db_h bit for bit: no atomics, the sum order fixed."""
+    case = _bwd_case(B, T, H, masked, reverse, cuda_device)
+    first = gru_cuda._launch_bwd(*case, reverse)
+    again = gru_cuda._launch_bwd(*case, reverse)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, again, ("dxw", "dwh", "dbh")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
