@@ -10,6 +10,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 1. device: card name and power limit, torch and CUDA versions, TF32 off;
 2. build: every CUDA kernel of the serving and train paths, one ``nvcc``
    per source in ``ikea_recommender_tpu_torch/csrc``, all started together;
+   each kernel's registers, and any stack frame or spill the compiler
+   reports;
 3. kernels: each kernel against its plain twin on the card at the shapes
    the paths give it and at longer, wider and padded ones, with the
    kernel's time, the twin's, its bound and one PyTorch call's as a
@@ -24,8 +26,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    wherever the twin's two best differ by more; also "default",
    "highest", NaN in a padded catalog, one row, and exact ties on both
    sides of a tile edge and at the last valid column, which the lowest id
-   must win); B1, B2, B4, B5 and B6 launched twice on each input must
-   agree bit for bit;
+   must win); every kernel launched twice on each input must agree bit
+   for bit;
 4. serving: gru4rec at the RetailRocket width (catalog 70852, E=H=64,
    T=10, one layer; random weights from a seed) answers 4 batches of 512
    seeded sessions through ``run.recommend.recommend_rows``. The launch
@@ -270,7 +272,9 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         for line in (report or "").strip().splitlines():
-            if "Used" in line or "error" in line.lower():
+            spilled = "bytes stack frame" in line and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+            if "Used" in line or spilled or "error" in line.lower():
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -305,7 +309,10 @@ def kernels_gru_fwd():
     ]:
         xw, wh, bh, mask = gru_case(B, T, H, masked)
         y, h = gru_scan(xw, wh, bh, mask, reverse=reverse)
+        again = gru_scan(xw, wh, bh, mask, reverse=reverse)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((y, h), again)):
+            fail(f"gru_fwd at {(B, T, H)}: two launches on the same inputs differ")
         y_p, h_p = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
         torch.cuda.synchronize()
         err = max_err((y, h), (y_p, h_p))

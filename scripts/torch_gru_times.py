@@ -6,15 +6,19 @@ B4 (its adjoint, gru_bwd), on one NVIDIA GPU.
 
 Imports the port and ``chip_smoke``'s timers and inputs from DIR (by default
 this script's repository), runs each kernel on seeded inputs at the train
-point (B, T, H) = (256, 10, 64) and the bidir_gru4rec point (256, 10, 128),
-masked, both directions at the latter, holds it to its plain twin (max
-|kernel - twin| over max |twin|, per output) and prints one JSON line per
-case with its device time: 20 launches in one CUDA graph, median of 5
-replays, as ``chip_smoke.py`` "[kernels]" measures. ``--sweep`` adds the
-unmasked points at T = 1 and 20 (a call's fixed cost against its cost per
-step); ``--kernels`` adds each CUDA kernel's mean device time per call under
-torch.profiler (B4 launches two). Run it on a commit and on its parent in
-one call (parent, change, change, parent) to compare them on one card.
+point (B, T, H) = (256, 10, 64), the serving point (512, 10, 64) (B3 only),
+the bidir_gru4rec point (256, 10, 128) in both directions, long sequences
+(256, 200, 64) reverse and the widest case (256, 50, 256), masked but the
+last, holds it to its plain twin (max |kernel - twin| over max |twin|, per
+output) and prints one JSON line per case with its device time: 20 launches
+in one CUDA graph, median of 5 replays, as ``chip_smoke.py`` "[kernels]"
+measures. ``--sweep`` adds the unmasked points at T = 1, 10 and 20 for
+H = 64 and 128, and one "[gru-sweep]" line per H that splits each kernel's
+time into a fixed part and a part per step (the slope from T = 10 to 20,
+and T = 1 less one step); ``--kernels`` adds each CUDA kernel's mean device
+time per call under torch.profiler (B4 launches two). Run it on a commit and
+on its parent in one call (parent, change, change, parent) to compare them
+on one card.
 """
 
 import argparse
@@ -22,12 +26,16 @@ import json
 import sys
 from pathlib import Path
 
-CASES = [  # (B, T, H, masked, reverse)
-    (256, 10, 64, True, False),
-    (256, 10, 128, True, False),
-    (256, 10, 128, True, True),
+CASES = [  # (B, T, H, masked, reverse, with B4)
+    (256, 10, 64, True, False, True),
+    (512, 10, 64, True, False, False),
+    (256, 10, 128, True, False, True),
+    (256, 10, 128, True, True, True),
+    (256, 200, 64, True, True, True),
+    (256, 50, 256, False, False, True),
 ]
-SWEEP = [(256, T, H, False, False) for H in (64, 128) for T in (1, 10, 20)]
+SWEEP_T = (1, 10, 20)
+SWEEP = [(256, T, H, False, False, True) for H in (64, 128) for T in SWEEP_T]
 
 
 def kernel_us(fn, n=20):
@@ -51,6 +59,12 @@ def kernel_us(fn, n=20):
     return out
 
 
+def split(ms_by_t):
+    """(fixed us, us per step) from {T: ms} at T = 1, 10, 20."""
+    step = (ms_by_t[20] - ms_by_t[10]) / 10 * 1e3
+    return ms_by_t[1] * 1e3 - step, step
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent.parent))
@@ -66,32 +80,51 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     label = args.label or args.repo
-    for B, T, H, masked, reverse in CASES + (SWEEP if args.sweep else []):
+    swept = {}
+    for B, T, H, masked, reverse, with_bwd in CASES + (SWEEP if args.sweep else []):
         xw, wh, bh, mask = gru_case(B, T, H, masked)
         g = torch.Generator(device="cuda").manual_seed(T)
         gy = torch.randn(B, T, H, device="cuda", generator=g)
         ghf = torch.randn(B, H, device="cuda", generator=g)
+
+        def fwd():
+            return gru_cuda._launch(xw, wh, bh, mask, reverse)
+
+        def bwd():
+            return gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
+
         with torch.no_grad():
             y, hfin = gru_cuda.gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
-            fwd = gru_cuda._launch(xw, wh, bh, mask, reverse)
-            bwd = gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
-            want = gru_cuda.gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
+            got = fwd()
         torch.cuda.synchronize()
         row = dict(
             label=label, B=B, T=T, H=H, masked=masked, reverse=reverse,
-            b3_rel_err=max(rel_err(a, w) for a, w in zip(fwd, (y, hfin))),
-            b4_rel_err={n: rel_err(a, w) for a, w, n in zip(bwd, want, ("dxw", "dwh", "dbh"))},
-            b3_ms=graph_ms(lambda: gru_cuda._launch(xw, wh, bh, mask, reverse), 20),
-            b4_ms=graph_ms(
-                lambda: gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse), 20
-            ),
-            device=torch.cuda.get_device_name(0),
+            b3_rel_err=max(rel_err(a, w) for a, w in zip(got, (y, hfin))),
+            b3_ms=graph_ms(fwd, 20),
         )
+        if with_bwd:
+            with torch.no_grad():
+                want = gru_cuda.gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
+                got = bwd()
+            torch.cuda.synchronize()
+            row["b4_rel_err"] = {
+                n: rel_err(a, w) for a, w, n in zip(got, want, ("dxw", "dwh", "dbh"))
+            }
+            row["b4_ms"] = graph_ms(bwd, 20)
         if args.kernels:
-            row["b4_kernel_us"] = kernel_us(
-                lambda: gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
-            )
+            row["b3_kernel_us"] = kernel_us(fwd)
+            if with_bwd:
+                row["b4_kernel_us"] = kernel_us(bwd)
+        row["device"] = torch.cuda.get_device_name(0)
         print(f"[gru] {json.dumps(row)}", flush=True)
+        if (B, T, H, masked, reverse, with_bwd) in SWEEP:
+            swept.setdefault(H, {})[T] = row
+    for H, by_t in swept.items():
+        out = dict(label=label, H=H)
+        for k in ("b3", "b4"):
+            fixed, step = split({T: by_t[T][f"{k}_ms"] for T in SWEEP_T})
+            out[f"{k}_fixed_us"], out[f"{k}_step_us"] = fixed, step
+        print(f"[gru-sweep] {json.dumps(out)}", flush=True)
 
 
 if __name__ == "__main__":

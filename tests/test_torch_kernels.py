@@ -9,7 +9,8 @@ installed (the repository's conftest imports JAX, hence ``--noconftest``):
 Kernel and twin take the same inputs on the card and differ only in the
 order of fp32 sums (the twins' products are cuBLAS fp32 with TF32 off) and
 in expf/tanhf against torch's exp/sigmoid/tanh. Tolerances:
-- B3 (gru_fwd): atol and rtol 1e-5 (outputs of order 1);
+- B3 (gru_fwd): atol and rtol 1e-5 (outputs of order 1); where a block's rows
+  are all masked, h carried bit for bit;
 - B4 (gru_bwd) and B1/B2 (fused_ce): max |kernel - twin| at most 1e-5
   times max |twin| for each output. dW_h, dh and dW sum up to ~10^4 to
   ~10^5 terms, so the bound scales with the output's size. B2's dW and db
@@ -50,14 +51,24 @@ from ikea_recommender_tpu_torch.ops.gru_cuda import (
     gru_scan_plain,
 )
 
-SHAPES = [  # (B, T, H, masked, reverse): the serving point, then long, wide, odd
-    (512, 10, 64, True, False),
+SHAPES = [  # (B, T, H, masked, reverse) over B3's layouts: W_h in registers up to
+    # H = 64, in shared memory up to 128, read from L2 above; 1, 2 or 4 rows a
+    # block (4 at the serving point); 16-byte copies where H % 4 == 0, else 4-byte
+    (512, 10, 64, True, False),  # the serving point
     (256, 200, 64, True, True),
     (256, 50, 256, False, False),
     (37, 9, 8, True, False),
     (3, 4, 128, True, True),  # the widest W_h held in shared memory by B3
     (50, 6, 192, True, False),  # the narrowest W_h read from L2 by B3
     (64, 20, 512, True, True),
+    (256, 10, 64, True, False),  # the train point
+    (256, 10, 128, True, False),  # the bidir point, both directions
+    (256, 10, 128, True, True),
+    (37, 7, 50, True, True),  # H % 4 != 0: 4-byte copies, W_h in registers
+    (9, 4, 126, True, False),  # H % 4 != 0, W_h in shared memory
+    (7, 3, 130, True, False),  # H % 4 != 0, W_h from L2
+    (64, 1, 64, True, False),  # T = 1: only the product-free first step
+    (64, 1, 128, False, True),
 ]
 
 BWD_SHAPES = [  # (B, T, H, masked, reverse) over B4's layouts: 2 rows a block and W_h
@@ -137,6 +148,56 @@ def test_gru_fwd_matches_twin(cuda_device, B, T, H, masked, reverse):
     y_p, h_p = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
     torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(h, h_p, atol=1e-5, rtol=1e-5)
+
+
+# Lengths whose blocks of 2 and of 4 rows are all masked at some steps: rows
+# 4-5 and 8-11 never step, 12-15 only twice.
+FWD_MASKED_LENS = [2, 2, 6, 6, 0, 0, 3, 1, 0, 0, 0, 0, 2, 2, 2, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B", [264, 528])  # 2 and 4 rows a block on 132 SMs
+def test_gru_fwd_blocks_masked_at_some_steps(cuda_device, B, reverse):
+    """Where a block's rows are all masked at a step, h is carried: y equals
+    the twin, and at a masked step it is the h of the row's last unmasked
+    step bit for bit (zero where none came before)."""
+    T, H = 6, 64
+    xw, wh, bh, _ = to_torch(*gru_inputs(B, T, H, seed=B, masked=False), device=cuda_device)
+    lens = torch.tensor(FWD_MASKED_LENS, device=cuda_device).repeat(B // 16 + 1)[:B]
+    mask = (torch.arange(T, device=cuda_device)[None, :] < lens[:, None]).float()
+    y, h = gru_scan(xw, wh, bh, mask, reverse=reverse)
+    torch.cuda.synchronize()
+    y_p, h_p = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
+    torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=1e-5)
+    for t in range(T):
+        off = lens <= t  # masked at step t
+        if reverse:  # walked first: nothing unmasked came before
+            want = torch.zeros_like(y[off, t])
+        else:
+            last = (lens[off] - 1).clamp(min=0)
+            want = torch.where(lens[off, None] > 0, y[off, last], 0.0)
+        assert torch.equal(y[off, t], want), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,H,masked,reverse",
+    [(256, 10, 64, True, False), (512, 10, 64, True, False), (256, 10, 128, True, False),
+     (256, 10, 128, True, True)],
+)
+def test_gru_fwd_is_bit_identical_over_two_launches(cuda_device, B, T, H, masked, reverse):
+    """At the train, serving and bidir points two launches on the same inputs
+    give the same y and h_fin bit for bit: each product's pieces are added in
+    a fixed order."""
+    xw, wh, bh, mask = to_torch(*gru_inputs(B, T, H, seed=B + T, masked=masked),
+                                device=cuda_device)
+    first = gru_scan(xw, wh, bh, mask, reverse=reverse)
+    again = gru_scan(xw, wh, bh, mask, reverse=reverse)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, again, ("y", "h_fin")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
