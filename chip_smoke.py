@@ -3,8 +3,9 @@
 their plain twins.
 
     python3 chip_smoke.py             # from the repository root, one card
-    python3 chip_smoke.py --profile   # adds where a serving batch's and
-                                      # each train step's time goes
+    python3 chip_smoke.py --profile   # adds where a serving batch's, each
+                                      # train step's and an eval batch's
+                                      # time goes
 
 Phases; any failure ends the run with a non-zero exit and no result line:
 1. device: card name and power limit, torch and CUDA versions, TF32 off;
@@ -59,7 +60,23 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the head input is F = 256; lr 0.0005, dropout 0.35 on the head input),
    as phase 5, with the card and the CPU copies given the same dropout
    masks for the checked steps and params held to lr / 1000; per timed
-   step B1 and B2 once, B3 and B4 twice (both directions).
+   step B1 and B2 once, B3 and B4 twice (both directions);
+8. eval: ``eval.protocol.EvalProtocol.evaluate`` at the eval batch
+   ``val_batch_size`` = 2000 over 20011 rows (11 batches, the last with 11
+   valid rows), windowed by ``data.preprocessing.window_sessions`` from
+   seeded sessions of 1-20 items: gru4rec at the RetailRocket width, then
+   bidir_gru4rec at hidden 128. About half the labels are set to one of the
+   row's top-20 ids under the plain recurrence, so that HR, NDCG and every
+   rank are exercised at random weights. Per batch the top-21 values and
+   CE are held to the same protocol with the recurrence run by B3's plain
+   twin (values and CE within 1e-5, ids wherever adjacent values differ by
+   more; only rows with a near tie may change a label's rank or a top-k
+   set, and they are counted); whole passes within 1e-5 (loss, rewards)
+   and, for HR, NDCG, repetitions and coverage, within what those counted
+   rows can move; the dense arm to the fused one (gru4rec) the same way; two fused
+   passes bit-identical; the counters of a pass show B3 once per batch and
+   direction and no other kernel. "[eval]" gives ms per pass, ms per batch
+   and sessions/s.
    Afterwards neither jax nor the reference package may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
@@ -306,6 +323,8 @@ def kernels_gru_fwd():
         (256, 10, 128, True, True),
         (256, 200, 64, True, True),  # long sequences, reverse direction
         (256, 50, 256, False, False),  # wide: W_h from L2, unmasked
+        (2000, 10, 64, True, False),  # the eval point: 500 blocks, ~3.8 waves
+        (2000, 10, 128, True, True),  # bidir's eval point, both directions
     ]:
         xw, wh, bh, mask = gru_case(B, T, H, masked)
         y, h = gru_scan(xw, wh, bh, mask, reverse=reverse)
@@ -606,11 +625,12 @@ def kernels_fused_argmax():
 
 def phase_kernels():
     """Every kernel against its twin. Returns the rows of the main paths'
-    shapes: B3 at the train and serving points, B4, B1 and B2 at the train
-    point, B5 and B6 at the sqn and smorl train points, and B1-B4 at the
-    bidir point under "<name> bidir"."""
+    shapes: B3 at the train, serving and eval points, B4, B1 and B2 at the
+    train point, B5 and B6 at the sqn and smorl train points, and B1-B4 at
+    the bidir point under "<name> bidir"."""
     b3, b4 = kernels_gru_fwd(), kernels_gru_bwd()
     rows = {"B3 gru_fwd": b3[(256, 10, 64)], "B3 serving": b3[(512, 10, 64)],
+            "B3 eval": b3[(2000, 10, 64)], "B3 eval bidir": b3[(2000, 10, 128)],
             "B3 gru_fwd bidir": b3[(256, 10, 128)], "B4 gru_bwd": b4[(256, 10, 64)],
             "B4 gru_bwd bidir": b4[(256, 10, 128)]}
     rows.update(kernels_fused_ce())
@@ -633,7 +653,7 @@ def plain_topk(params, mc, states, lens, k):
     return v, i
 
 
-def check_topk(v, i, v_ref, i_ref, k, atol=1e-5):
+def check_topk(v, i, v_ref, i_ref, k, atol=1e-5, ref="the plain recurrence"):
     """Values (B, >= k) within ``atol`` of the reference's (B, k+1) over k
     columns; ids equal where the reference's adjacent values differ by more
     than GAP. Returns that (B, k) mask of separated positions."""
@@ -641,12 +661,12 @@ def check_topk(v, i, v_ref, i_ref, k, atol=1e-5):
         fail("non-finite or misshapen top-k values")
     err = (v[:, :k] - v_ref[:, :k]).abs().max().item()
     if err > atol:
-        fail(f"top-k values differ from the plain recurrence by {err:.3g}")
+        fail(f"top-k values differ from {ref} by {err:.3g}")
     d = (v_ref[:, 1:] - v_ref[:, :-1]).abs()
     left = torch.cat([torch.full_like(d[:, :1], float("inf")), d[:, : k - 1]], dim=1)
     clear = (left > GAP) & (d[:, :k] > GAP)
     if (clear & (i[:, :k] != i_ref[:, :k])).any():
-        fail("top-k ids differ from the plain recurrence at separated positions")
+        fail(f"top-k ids differ from {ref} at separated positions")
     return clear
 
 
@@ -1135,6 +1155,260 @@ def profile_train(step, state, batch):
         print(f"[profile]   {e.self_device_time_total:10.1f} us  x{e.count:<4d} {e.key[:90]}")
 
 
+# The eval protocol's operating point: the eval batch val_batch_size = 2000
+# (core/config.py) over 20011 rows, 11 batches, the last holding 11 valid
+# rows and 1989 padded ones (scripts/bench_eval.py uses 20000 at this width;
+# the 11 more exercise the tail). gru4rec at the RetailRocket width and
+# bidir_gru4rec at that of BidirGRU-128.yaml, as in the train phases.
+EVAL_ROWS, EVAL_BATCH = 20011, 2000
+EVAL_POINTS = {"gru4rec": dict(E=64, H=64), "bidir_gru4rec": dict(E=64, H=128)}
+
+
+@contextlib.contextmanager
+def plain_recurrence():
+    """Inside, the backbone's recurrence runs B3's plain twin, on the card
+    too; outside, ``gru_scan`` as always."""
+    from ikea_recommender_tpu_torch.models import gru
+    from ikea_recommender_tpu_torch.ops.gru_cuda import gru_scan_plain
+
+    scan = gru.gru_scan
+    gru.gru_scan = gru_scan_plain
+    try:
+        yield
+    finally:
+        gru.gru_scan = scan
+
+
+def eval_buffer(A, T, n_rows, rs):
+    """``n_rows`` eval windows (the port's ``window_sessions``, pad id A) of
+    seeded sessions of 1-20 items."""
+    from ikea_recommender_tpu_torch.data.preprocessing import window_sessions
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer
+
+    lens = rs.randint(1, 21, n_rows)
+    lens = lens[: np.searchsorted(np.cumsum(lens), n_rows) + 1]
+    lens[-1] -= lens.sum() - n_rows
+    win = window_sessions(rs.randint(0, A, n_rows), np.repeat(np.arange(len(lens)), lens), T, A)
+    return EvalBuffer(state=win.state, action=win.action, true_len=win.true_state_len)
+
+
+def eval_scores(proto, params, buf, k):
+    """Per eval batch: (top-k values, ids, per-sample CE, labels, valid) of
+    the protocol's scorer, the path ``update`` takes."""
+    from ikea_recommender_tpu_torch.data.replay_buffer import eval_batches
+
+    out = []
+    for b in eval_batches(buf, EVAL_BATCH):
+        v, i, ce = proto.topk_ce(params, b.state, b.true_len, b.action, k=k)
+        out.append((v, i, ce, *(torch.as_tensor(x, device="cuda") for x in (b.action, b.valid))))
+    return out
+
+
+def hold_eval_batches(got, want, proto, ref):
+    """Each batch's top max-k to ``want``'s by check_topk's rule, and its CE
+    within 1e-5, on the valid rows. Returns the counts of valid rows with a
+    near tie in the top max k + 1 ("near"), and of those whose label's rank
+    ("rank") or whose top-k set, for each k a metric reads (k), differs
+    from the reference: only near rows may, and only these can move a
+    metric."""
+    from ikea_recommender_tpu_torch.ops.ranking import hit_ranks
+
+    ks = sorted({*proto.topk_hr_ndcg, *proto.topk_cov, proto.topk_div, proto.topk_nov})
+    max_k = ks[-1]
+    moved = dict.fromkeys(["near", "rank", *ks], 0)
+    for (v, i, ce, label, valid), (v_ref, i_ref, ce_ref, _, _) in zip(got, want):
+        clear = check_topk(v, i, v_ref, i_ref, max_k, ref=ref)
+        err = (ce - ce_ref)[valid].abs().max().item()
+        if not (torch.isfinite(ce).all() and err <= 1e-5):
+            fail(f"eval: per-sample CE differs from {ref} by {err:.3g}")
+        near = valid & ~clear.all(dim=1)
+        rows = {"near": near,
+                "rank": valid & (hit_ranks(i[:, :max_k], label)[1]
+                                 != hit_ranks(i_ref[:, :max_k], label)[1])}
+        for k in ks:
+            rows[k] = valid & (i[:, :k].sort(dim=1).values
+                               != i_ref[:, :k].sort(dim=1).values).any(dim=1)
+        for key, r in rows.items():
+            if (r & ~near).any():
+                fail(f"eval: rows without a near tie moved ({key}) against {ref}")
+            moved[key] += int(r.sum())
+    return moved
+
+
+def hold_eval_result(got, want, moved, proto, T, ref):
+    """Whole passes: the loss within 1e-5; the rewards within 1e-5 plus
+    what the rows whose top-k set moved can move; HR, NDCG (+1e-6, sums in
+    other orders), repetitions and coverage within what the rows whose rank
+    or top-k set moved can move: exact where none did."""
+    n = EVAL_ROWS
+    n_unpop = max(int(proto.unpopular_mask.sum()), 1)
+    bad = []
+    if not all(np.isfinite(x).all() for x in (got.loss, got.hr, got.ndcg, got.reps)):
+        bad.append("not finite")
+    if abs(got.loss - want.loss) > 1e-5:
+        bad.append(f"loss {got.loss} vs {want.loss}")
+    if abs(got.div_rew - want.div_rew) > 1e-5 + 2 * moved[proto.topk_div] / n:
+        bad.append(f"div_rew {got.div_rew} vs {want.div_rew}")
+    if abs(got.nov_rew - want.nov_rew) > 1e-5 + proto.nov_rew_sig * moved[proto.topk_nov] / n:
+        bad.append(f"nov_rew {got.nov_rew} vs {want.nov_rew}")
+    for j, k in enumerate(proto.topk_hr_ndcg):
+        if abs(got.hr[j] - want.hr[j]) > moved["rank"] / n:
+            bad.append(f"HR@{k} {got.hr[j]} vs {want.hr[j]}")
+        if abs(got.ndcg[j] - want.ndcg[j]) > 1e-6 + moved["rank"] / n:
+            bad.append(f"NDCG@{k} {got.ndcg[j]} vs {want.ndcg[j]}")
+        if abs(got.reps[j] - want.reps[j]) > moved[k] * k * T / n:
+            bad.append(f"R@{k} {got.reps[j]} vs {want.reps[j]}")
+    for k in proto.topk_cov:
+        (gu, ga), (wu, wa) = got.coverage[k], want.coverage[k]
+        if abs(gu - wu) > moved[k] * k / n_unpop or abs(ga - wa) > moved[k] * k / proto.num_actions:
+            bad.append(f"coverage@{k} {got.coverage[k]} vs {want.coverage[k]}")
+    if bad:
+        fail(f"eval pass against {ref} (rows moved: {moved}): {'; '.join(bad)}")
+
+
+def same_result(a, b):
+    """Two EvalResults equal bit for bit."""
+    return (a.loss == b.loss and a.div_rew == b.div_rew and a.nov_rew == b.nov_rew
+            and all(np.array_equal(x, y) for x, y in ((a.hr, b.hr), (a.ndcg, b.ndcg),
+                                                      (a.reps, b.reps)))
+            and a.coverage == b.coverage)
+
+
+def phase_eval(family, smi, profile=False):
+    """One family's eval at the eval batch: per batch and per pass against
+    the plain recurrence, the dense arm against the fused one (gru4rec), two
+    passes bit for bit, then timed passes. Returns a timed pass's launches."""
+    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.core.config import DataConfig, MetricsConfig, TrainConfig
+    from ikea_recommender_tpu_torch.data.replay_buffer import eval_batches, num_batches
+    from ikea_recommender_tpu_torch.eval.protocol import EvalProtocol
+    from ikea_recommender_tpu_torch.models.families import model_config_from_train
+
+    A, T = 70852, 10
+    E, H = EVAL_POINTS[family]["E"], EVAL_POINTS[family]["H"]
+    tc = TrainConfig(model=family, embedding_size=E, hidden_state_size=H, state_size=T)
+    if tc.val_batch_size != EVAL_BATCH:
+        fail(f"val_batch_size is {tc.val_batch_size}, not {EVAL_BATCH}")
+    mc = model_config_from_train(tc, DataConfig(num_items=A))
+    params = params_from_numpy(numpy_init_params(mc, seed=0), device="cuda")
+    rs = np.random.RandomState(2)
+    buf = eval_buffer(A, T, EVAL_ROWS, rs)
+    m = MetricsConfig()  # topk_hr_ndcg (10, 20), topk_cov (1, 5, 10, 20), div and nov 1
+    kw = dict(topk_hr_ndcg=m.topk_hr_ndcg, topk_cov=m.topk_cov, topk_div=m.topk_div,
+              topk_nov=m.topk_nov, nov_rew_sig=m.nov_rew_sig,
+              # as scripts/bench_eval.py:43-50 draws them
+              div_embedding=rs.randn(A + 1, E).astype(np.float32),
+              unpopular_mask=np.arange(A) % 10 == 0)
+    fused = EvalProtocol(mc, device="cuda", **kw)
+    if not fused.fused:
+        fail("the RetailRocket width must take the fused eval arm")
+    max_k = max(*m.topk_hr_ndcg, *m.topk_cov, m.topk_div, m.topk_nov)
+
+    # about half the labels at one of the row's top-20 ids under the plain
+    # recurrence: at random weights a label almost never hits otherwise
+    with plain_recurrence():
+        top = torch.cat([i[valid] for _, i, _, _, valid in eval_scores(fused, params, buf, max_k)])
+    top = top.cpu().numpy()
+    relabel = rs.rand(EVAL_ROWS) < 0.5
+    buf.action[relabel] = top[relabel, rs.randint(0, max_k, EVAL_ROWS)[relabel]]
+
+    # -- per batch: the card against the plain recurrence, then dense vs fused
+    with plain_recurrence():
+        want = eval_scores(fused, params, buf, max_k + 1)
+    got = eval_scores(fused, params, buf, max_k + 1)
+    moved = hold_eval_batches(got, want, fused, "the plain recurrence")
+    dense, moved_d = None, None
+    if family == "gru4rec":
+        dense = EvalProtocol(mc, fused=False, device="cuda", **kw)
+        moved_d = hold_eval_batches(eval_scores(dense, params, buf, max_k + 1), got, dense,
+                                    "the fused arm")
+    del got, want
+
+    # -- whole passes: the reference, then three timed fused passes
+    with plain_recurrence():
+        res_ref = fused.evaluate(params, buf, EVAL_BATCH)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = fused.evaluate(params, buf, EVAL_BATCH)
+    pass_ms = [(time.perf_counter() - t0) * 1e3]
+    launches = counters()
+    n_b = num_batches(EVAL_ROWS, EVAL_BATCH)
+    n_dir = 2 if mc.backbone.bidirectional else 1
+    b3 = launches.pop("B3 gru_fwd")
+    if b3 != n_b * n_dir or any(launches.values()):
+        fail(f"an eval pass of {n_b} batches launched gru_fwd {b3} times and {launches}")
+    launches["B3 gru_fwd"] = b3
+    hold_eval_result(res, res_ref, moved, fused, T, "the plain recurrence")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = fused.evaluate(params, buf, EVAL_BATCH)
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        if not same_result(res, again):
+            fail(f"two fused eval passes differ: {res} and {again}")
+    if dense is not None:
+        hold_eval_result(dense.evaluate(params, buf, EVAL_BATCH), res, moved_d, dense, T,
+                         "the fused arm")
+    if not res.hr[-1] > 0.3:
+        fail(f"HR@{m.topk_hr_ndcg[-1]} {res.hr[-1]} with half the labels in the top 20")
+
+    # -- one batch at a time, each to a synchronize
+    accum, batch_ms = fused.init_accum(), []
+    for b in eval_batches(buf, EVAL_BATCH):
+        t0 = time.perf_counter()
+        accum = fused.update(params, accum, b.state, b.action, b.true_len, b.valid)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(pass_ms))
+    print(f"[eval] {family} A={A} E={E} H={H} T={T}: {EVAL_ROWS} rows in {n_b} batches of "
+          f"{EVAL_BATCH}; loss {res.loss:.6f} HR {res.hr.tolist()} NDCG {res.ndcg.tolist()} "
+          f"R {res.reps.tolist()} coverage {res.coverage} div {res.div_rew:.6f} nov "
+          f"{res.nov_rew:.6f} (about half the labels drawn from the top 20, so HR is not "
+          f"a model's); valid rows near a tie, and whose label rank or top-k set moved, "
+          f"against the plain recurrence {moved}"
+          + ("" if moved_d is None else f", dense against fused {moved_d}")
+          + f"; launches {launches}")
+    print(f"[eval] {family}: ms per pass {[round(t, 3) for t in pass_ms]}, median {ms:.3f} = "
+          f"{EVAL_ROWS / ms * 1e3:.0f} sessions/s; ms per batch to a synchronize median "
+          f"{float(np.median(batch_ms)):.3f} (min {min(batch_ms):.3f}, max "
+          f"{max(batch_ms):.3f}); {smi}")
+    if profile:
+        profile_eval(fused, params, next(eval_batches(buf, EVAL_BATCH)))
+    return launches
+
+
+def profile_eval(proto, params, batch):
+    """One eval batch's device time by kernel, its idle share and the
+    radix ``topk`` kernels' share of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def update():
+        proto.update(params, proto.init_accum(), batch.state, batch.action, batch.true_len,
+                     batch.valid)
+        torch.cuda.synchronize()
+
+    update()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        update()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in events)
+    topk_us = sum(e.self_device_time_total for e in events
+                  if "topk" in e.key.lower() or "radix" in e.key.lower())
+    print(f"[profile] eval batch of {len(batch.valid)}: wall {wall_us:.1f} us, device busy "
+          f"{busy_us:.1f} us ({busy_us / wall_us:.4f}), idle share {1 - busy_us / wall_us:.4f}, "
+          f"{sum(e.count for e in events)} kernel launches; radix topk {topk_us:.1f} us "
+          f"({topk_us / busy_us:.4f} of busy)")
+    for e in events[:12]:
+        print(f"[profile]   {e.self_device_time_total:10.1f} us  x{e.count:<4d} {e.key[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1150,6 +1424,8 @@ def main():
     for family in ("sqn", "smorl"):
         paths[family] = phase_double_q(family, profile=profile)
     paths["bidir_gru4rec"] = phase_train("bidir_gru4rec", profile=profile)
+    paths["eval"] = phase_eval("gru4rec", smi, profile=profile)
+    paths["eval_bidir_gru4rec"] = phase_eval("bidir_gru4rec", smi, profile=profile)
     # the card's machine has jax installed: show the port never loaded it
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))
@@ -1196,6 +1472,10 @@ def main():
         if name == "B3 gru_fwd":
             serving = rows["B3 serving"]
             entry.update(serving_ms=serving["ms"], serving_bound_ms=serving["bound_ms"])
+            for key in ("eval", "eval bidir"):  # B = 2000: (2000, 10, 64), (2000, 10, 128)
+                point = rows[f"B3 {key}"]
+                entry.update({f"{key.replace(' ', '_')}_{k}": point[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if f"{name} bidir" in rows:  # the bidir_gru4rec point's figures
             bidir = rows[f"{name} bidir"]
             entry.update({f"bidir_{k}": bidir[k] for k in (

@@ -1,18 +1,22 @@
-"""Online rewards of the smorl train step, computed on the device.
+"""Online rewards and behavioural metrics, computed on the device.
 
-Port of ``ikea_recommender_tpu/ops/rewards.py`` (``get_last_action``,
-``diversity_from_topk`` and ``novelty_from_topk``; the reference's
-``evaluate/diversity.py`` and ``novelty.py``). Both rewards read the
-supervised head's top-k ids; the output-to-input vocabulary remap is an
-int gather table (``out_to_in``). The module's other functions come with the
-eval slice (ROADMAP A.3).
+Port of ``ikea_recommender_tpu/ops/rewards.py`` (the reference's
+``evaluate/diversity.py``, ``novelty.py`` and ``repetitiveness.py``): the
+smorl train step's diversity and novelty rewards, and the eval protocol's
+rewards and repetition counts. Each reads top-k ids; the ``*_rewards`` and
+``repetition_counts`` forms take them from (B, A) scores through
+``ops/ranking.py::topk_indices``, which keeps ``lax.top_k``'s tie order.
+The output-to-input vocabulary remap is an int gather table
+(``out_to_in``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+from ikea_recommender_tpu_torch.ops.ranking import topk_indices
 
 
 def get_last_action(states: torch.Tensor, lengths: torch.Tensor, padding_pos: str) -> torch.Tensor:
@@ -52,6 +56,22 @@ def diversity_from_topk(
     return 1.0 - torch.mean(num / denom, dim=1)
 
 
+def diversity_rewards(
+    states: torch.Tensor,  # (B, T) input-token ids
+    predictions: torch.Tensor,  # (B, A) output-head scores
+    lengths: torch.Tensor,  # (B,)
+    padding_pos: str,
+    topk: int,
+    div_embedding: torch.Tensor,
+    out_to_in: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    return diversity_from_topk(
+        states, topk_indices(predictions, topk), lengths, padding_pos, div_embedding,
+        out_to_in=out_to_in, eps=eps,
+    )
+
+
 def novelty_from_topk(
     pred_idx: torch.Tensor,  # (B, k) top-k predicted action ids
     unpopular_mask: torch.Tensor,  # (A,) bool
@@ -61,3 +81,43 @@ def novelty_from_topk(
     ``reward``; the unpopular set lives in output-token space."""
     nov = unpopular_mask[pred_idx.long()].to(torch.float32) * reward
     return torch.mean(nov, dim=1)
+
+
+def novelty_rewards(
+    predictions: torch.Tensor,  # (B, A)
+    unpopular_mask: torch.Tensor,  # (A,) bool
+    reward: float = 1.0,
+    topk: int = 1,
+) -> torch.Tensor:
+    return novelty_from_topk(topk_indices(predictions, topk), unpopular_mask, reward)
+
+
+def repetitions_from_topk(
+    states: torch.Tensor,  # (B, T) input-token ids
+    idx: torch.Tensor,  # (B, >= max k) top-k predicted action ids
+    top_k: Sequence[int],
+    out_to_in: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Total count, per k, of (state position, top-k prediction) pairs that
+    hold the same item, summed over the batch (reference
+    ``repetitiveness.py:21-57``). Returns (len(top_k),) float32 sums."""
+    idx = idx.long()
+    if out_to_in is not None:
+        idx = out_to_in[idx].long()
+    eq = states.long()[:, :, None] == idx[:, None, :]  # (B, T, maxk)
+    if valid is not None:
+        eq = eq & valid.bool()[:, None, None]
+    return torch.stack([eq[:, :, :k].sum() for k in top_k]).to(torch.float32)
+
+
+def repetition_counts(
+    states: torch.Tensor,  # (B, T) input-token ids
+    predictions: torch.Tensor,  # (B, A)
+    top_k: Sequence[int],
+    out_to_in: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    return repetitions_from_topk(
+        states, topk_indices(predictions, max(top_k)), top_k, out_to_in=out_to_in, valid=valid
+    )

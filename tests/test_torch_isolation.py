@@ -62,7 +62,9 @@ def test_importing_the_port_loads_no_jax():
         for p in sorted(PORT.rglob("*.py"))
     ]
     for new in ("ops.fused_ce", "ops.fused_argmax", "ops.rl", "ops.rewards", "train.state",
-                "train.steps"):
+                "train.steps", "ops.ranking", "ops.coverage", "data.item_frequency",
+                "data.preprocessing", "data.replay_buffer", "eval.protocol",
+                "utils.logging_dicts"):
         assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"

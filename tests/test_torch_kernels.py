@@ -24,7 +24,10 @@ in expf/tanhf against torch's exp/sigmoid/tanh. Tolerances:
   small integers every sum is exact in any order, so there the ids, ties
   included, must be equal everywhere and the lowest of the tied ids; on
   data whose weighted head sum rounds differently in head order than with
-  q folded into W, B6's ids and maxima must equal the twin's bit for bit.
+  q folded into W, B6's ids and maxima must equal the twin's bit for bit;
+- the eval protocol (B3 in its backbone) on the card against the CPU: on
+  rows whose top-21 scores are more than 1e-5 apart, HR, repetitions and
+  coverage equal, NDCG within 1e-6, the loss and rewards within 1e-5.
 """
 
 import pytest
@@ -69,6 +72,8 @@ SHAPES = [  # (B, T, H, masked, reverse) over B3's layouts: W_h in registers up 
     (7, 3, 130, True, False),  # H % 4 != 0, W_h from L2
     (64, 1, 64, True, False),  # T = 1: only the product-free first step
     (64, 1, 128, False, True),
+    (2000, 10, 64, True, False),  # the eval batch: 500 blocks of 4 rows, ~3.8 waves
+    (2000, 10, 128, True, True),  # the eval batch at the bidir point
 ]
 
 BWD_SHAPES = [  # (B, T, H, masked, reverse) over B4's layouts: 2 rows a block and W_h
@@ -185,12 +190,12 @@ def test_gru_fwd_blocks_masked_at_some_steps(cuda_device, B, reverse):
 @pytest.mark.parametrize(
     "B,T,H,masked,reverse",
     [(256, 10, 64, True, False), (512, 10, 64, True, False), (256, 10, 128, True, False),
-     (256, 10, 128, True, True)],
+     (256, 10, 128, True, True), (2000, 10, 64, True, False)],
 )
 def test_gru_fwd_is_bit_identical_over_two_launches(cuda_device, B, T, H, masked, reverse):
-    """At the train, serving and bidir points two launches on the same inputs
-    give the same y and h_fin bit for bit: each product's pieces are added in
-    a fixed order."""
+    """At the train, serving, bidir and eval points two launches on the same
+    inputs give the same y and h_fin bit for bit: each product's pieces are
+    added in a fixed order."""
     xw, wh, bh, mask = to_torch(*gru_inputs(B, T, H, seed=B + T, masked=masked),
                                 device=cuda_device)
     first = gru_scan(xw, wh, bh, mask, reverse=reverse)
@@ -544,3 +549,63 @@ def test_tensor_core_kernels_refuse_features_past_their_limit(cuda_device, preci
         want, mx, gap = _twin_argmax(*args, valid, "highest")
         torch.cuda.synchronize()
         assert ((idx == want) | (gap <= 1e-5 * mx.abs().max())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_eval_protocol_on_the_card_matches_the_cpu(cuda_device, fused):
+    """``EvalProtocol.evaluate`` on the card (B3 in the backbone) against
+    the same protocol on the CPU (the plain twin), gru4rec at a small width
+    over two 4096-column blocks, 150 rows in batches of 64 (a padded tail).
+    The buffer keeps the rows whose top 21 CPU scores are more than 1e-5
+    apart, where both sides rank the same ids: then the loss and rewards
+    agree within 1e-5, NDCG within 1e-6, and HR, repetitions and coverage
+    exactly. Each batch launches B3 once."""
+    import numpy as np
+
+    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer
+    from ikea_recommender_tpu_torch.eval.protocol import EvalProtocol
+    from ikea_recommender_tpu_torch.models.families import apply_model, model_config_from_train
+
+    A, T, E, n_rows, batch = 5000, 5, 16, 150, 64
+    mc = model_config_from_train(
+        TrainConfig(embedding_size=E, hidden_state_size=E, state_size=T), DataConfig(num_items=A)
+    )
+    np_params = numpy_init_params(mc, seed=3)
+    np_params["backbone"]["embedding"] *= 30.0  # sessions that differ in their top-k
+    rs = np.random.RandomState(4)
+    lens = rs.randint(1, T + 1, 2 * n_rows).astype(np.int32)
+    states = np.full((2 * n_rows, T), A, np.int32)
+    for i, n in enumerate(lens):
+        states[i, :n] = rs.randint(0, A, n)
+    cpu = params_from_numpy(np_params, "cpu")
+    with torch.no_grad():
+        scores = apply_model(cpu, mc, torch.as_tensor(states), torch.as_tensor(lens))[0]
+    top = scores.topk(21, dim=1).values
+    keep = ((top[:, :-1] - top[:, 1:]) > 1e-5).all(dim=1).nonzero().flatten().numpy()
+    assert len(keep) >= 0.9 * len(lens)
+    keep = keep[:n_rows]
+    action = rs.randint(0, A, n_rows)
+    half = rs.rand(n_rows) < 0.5  # labels in the top 20: hits at every k
+    action[half] = scores[keep].topk(20, dim=1).indices.numpy()[half, rs.randint(0, 20, n_rows)[half]]
+    buf = EvalBuffer(state=states[keep], action=action, true_len=lens[keep])
+    kw = dict(topk_hr_ndcg=(5, 10, 20), topk_cov=(1, 5, 10, 20), fused=fused,
+              div_embedding=rs.randn(A + 1, 4).astype(np.float32),
+              unpopular_mask=np.arange(A) % 10 == 0)
+
+    want = EvalProtocol(mc, device="cpu", **kw).evaluate(cpu, buf, batch)
+    proto = EvalProtocol(mc, device=cuda_device, **kw)
+    assert proto.fused == fused
+    before = gru_cuda.LAUNCHES
+    got = proto.evaluate(params_from_numpy(np_params, cuda_device), buf, batch)
+    assert gru_cuda.LAUNCHES == before + 3
+    assert abs(got.loss - want.loss) <= 1e-5
+    assert abs(got.div_rew - want.div_rew) <= 1e-5
+    assert abs(got.nov_rew - want.nov_rew) <= 1e-5
+    np.testing.assert_array_equal(got.hr, want.hr)
+    np.testing.assert_array_equal(got.reps, want.reps)
+    np.testing.assert_allclose(got.ndcg, want.ndcg, atol=1e-6, rtol=0)
+    assert got.coverage == want.coverage
+    assert got.hr[-1] > 0.3
