@@ -4,8 +4,8 @@ their plain twins.
 
     python3 chip_smoke.py             # from the repository root, one card
     python3 chip_smoke.py --profile   # adds where a serving batch's, each
-                                      # train step's and an eval batch's
-                                      # time goes
+                                      # train step's, an eval batch's and
+                                      # a trainer span's time goes
 
 Phases; any failure ends the run with a non-zero exit and no result line:
 1. device: card name and power limit, torch and CUDA versions, TF32 off;
@@ -76,7 +76,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    rows can move; the dense arm to the fused one (gru4rec) the same way; two fused
    passes bit-identical; the counters of a pass show B3 once per batch and
    direction and no other kernel. "[eval]" gives ms per pass, ms per batch
-   and sessions/s.
+   and sessions/s;
+9. trainer: ``run/trainer.py::train`` at the RetailRocket width on an
+   experiment built by the port's ``data/synthetic.py`` and
+   ``data/split.py`` (16391 train rows, 65 steps of 256 an epoch; 4139 val
+   and 4046 test rows at the eval batch 2000): gru4rec for 2 epochs (eval
+   at 0.5 and 1, checkpoints, the embedding exported) through the CLI,
+   ``run.cli.main(["-f", yaml, "--progress"])``, which must exit 0, print
+   the test metrics it writes, write the best model, the checkpoint and
+   a (70853, 64) embedding, log only finite values, and lower epoch 2's
+   first-window train loss below epoch 1's; sqn and smorl for 1 epoch
+   through ``train(cfg, train_buf=...)``, with both nets' ``Sec_`` keys.
+   Each run's launch counters, reset just before, must equal ``PER_STEP``
+   per step plus B3 once per eval batch (each train-metrics batch, the
+   val passes of each net, the test pass). sqn then runs 2 epochs, whose
+   first epoch must equal the 1-epoch run's logs bit for bit, and a run
+   resumed from that run's checkpoint must give its second epoch, best
+   point and test metrics bit for bit. gru4rec runs 1 epoch with train
+   metrics off. "[trainer]" lines give sessions/s of the train loop and
+   the four ``timing`` shares; with ``--profile`` one more gru4rec epoch
+   is traced over its first span (``profile_dir``), and "[profile]
+   trainer" gives its busy time, idle share and largest kernels.
    Afterwards neither jax nor the reference package may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
@@ -1409,6 +1429,268 @@ def profile_eval(proto, params, batch):
         print(f"[profile]   {e.self_device_time_total:10.1f} us  x{e.count:<4d} {e.key[:90]}")
 
 
+# The trainer phase's experiment: the RetailRocket width (catalog 70852,
+# E = H = 64, state_len 10, batch 256, val_batch_size 2000, fused CE in
+# "high"), with about 64 train batches of 256 an epoch and about 4000 val
+# and 4000 test rows, windowed from synthetic sessions (data/synthetic.py,
+# mean length 8) split by session (data/split.py).
+TRAINER_A, TRAINER_T, TRAINER_B = 70852, 10, 256
+TRAINER_SESSIONS, TRAINER_SPLIT = 3050, (0.67, 0.165, 0.165)
+
+
+def trainer_experiment(out_dir):
+    """Writes train/val/test ``.npz`` buffers, an unpopular-items JSON and
+    an ``experiment.yaml`` (gru4rec, 2 epochs, eval at 0.5 and 1, a
+    checkpoint dir, the embedding exported) under ``out_dir``; returns the
+    YAML's path."""
+    import os
+
+    from ikea_recommender_tpu_torch.data.item_frequency import save_unpopular_items
+    from ikea_recommender_tpu_torch.data.preprocessing import window_sessions
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, ReplayBuffer
+    from ikea_recommender_tpu_torch.data.split import train_test_split_ids
+    from ikea_recommender_tpu_torch.data.synthetic import synthetic_sessions
+
+    A, T = TRAINER_A, TRAINER_T
+    items, sids = synthetic_sessions(TRAINER_SESSIONS, A, mean_len=8, seed=7)
+    masks = train_test_split_ids(sids, ratio=TRAINER_SPLIT, seed=118)
+    for name, mask in zip(("train", "val", "test"), masks):
+        win = window_sessions(items[mask], sids[mask], T, pad_id=A, pad_pos="end")
+        buf = ReplayBuffer(state=win.state, action=win.action,
+                           reward=np.ones(len(win), np.float32), next_state=win.next_state,
+                           true_len=win.true_state_len, true_next_len=win.true_next_state_len,
+                           is_end=win.is_end)
+        out = buf if name == "train" else EvalBuffer.from_replay_buffer(buf)
+        out.save_npz(os.path.join(out_dir, f"{name}.npz"))
+    save_unpopular_items(items, os.path.join(out_dir, "unpopular.json"), 0.9)
+    path = os.path.join(out_dir, "experiment.yaml")
+    with open(path, "w") as fh:
+        fh.write(f"""exp_name: "trainer-smoke"
+experiment:
+  seed: 118
+  save_pretrained_embeddings: true
+data:
+  train_path: "{out_dir}/train.npz"
+  val_path: "{out_dir}/val.npz"
+  test_path: "{out_dir}/test.npz"
+  num_items: {A}
+train:
+  model: "gru4rec"
+  batch_size: {TRAINER_B}
+  val_batch_size: {EVAL_BATCH}
+  epochs: 2
+  learning_rate: 0.01
+  embedding_size: 64
+  hidden_state_size: 64
+  state_size: {T}
+  fused_ce: true
+  head_precision: "high"
+  best_model_metric: "Val_NDCG@10"
+  eval_at: [0.5, 1]
+  checkpoint_dir: "{out_dir}/ckpt"
+metrics:
+  unpopular_actions_path: "{out_dir}/unpopular.json"
+  topk_cov: [1, 5, 10, 20]
+  topk_hr_ndcg: [10, 20]
+""")
+    return path
+
+
+def trainer_launches(family, outcome, n_steps, n_val, n_test, train_metrics=True):
+    """The counters a run must show: PER_STEP per train step, and B3 once
+    per eval batch (direction): each train-metrics batch, the val passes
+    (the warm-up and every eval point, each net) and the test pass."""
+    nets = 2 if family in ("sqn", "smorl") else 1
+    eval_batches = (n_steps if train_metrics else 0) + n_test
+    eval_batches += (1 + nets * len(outcome.logs)) * n_val
+    want = {name: PER_STEP[family].get(name, 0) * n_steps for name in counters()}
+    want["B3 gru_fwd"] += eval_batches
+    return want
+
+
+def trainer_line(what, outcome, smi, launches):
+    t = outcome.timing
+    total = sum(t.values())
+    print(f"[trainer] {what}: {outcome.throughput_sessions_per_sec:.0f} sessions/s of the train "
+          f"loop; timing s {json.dumps({k: round(v, 4) for k, v in t.items()})}, shares "
+          f"{json.dumps({k: round(v / total, 4) for k, v in t.items()})}; best "
+          f"{outcome.best_metric:.6f} @ eval point {outcome.best_epoch}; launches "
+          f"{json.dumps(launches)}; {smi}")
+
+
+def check_logs(what, outcome):
+    for d in [outcome.pretrain_metrics, *outcome.logs, outcome.test_metrics]:
+        bad = {k: v for k, v in d.items() if not np.isfinite(v)}
+        if bad:
+            fail(f"trainer {what}: non-finite logged values {bad}")
+
+
+def profile_trainer(trace_dir):
+    """The device's busy time and idle share over the trainer's first span,
+    from the chrome trace its ``profile_dir`` wrote."""
+    import glob
+
+    (path,) = glob.glob(f"{trace_dir}/*.json")
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        fail(f"the trainer's trace {path} holds no kernel")
+    t0 = min(e["ts"] for e in events)
+    wall = max(e["ts"] + e["dur"] for e in events) - t0
+    busy = sum(e["dur"] for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    print(f"[profile] trainer, gru4rec's first span (train metrics on): wall {wall:.1f} us, "
+          f"device busy {busy:.1f} us ({busy / wall:.4f}), idle share {1 - busy / wall:.4f}, "
+          f"{len(kernels)} kernel launches")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   {us:10.1f} us  {name[:90]}")
+
+
+def phase_trainer(smi, profile=False):
+    """The trainer (run/trainer.py) at the RetailRocket width: gru4rec for 2
+    epochs through the CLI, sqn and smorl for 1 epoch through ``train``,
+    sqn again for determinism and resume, gru4rec with train metrics off
+    (and with ``profile``, one epoch traced over its first span). Returns
+    each checked run's launches."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from ikea_recommender_tpu_torch.core.config import load_experiment_config
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, ReplayBuffer, num_batches
+    from ikea_recommender_tpu_torch.run import cli, trainer
+
+    paths = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        t0 = time.perf_counter()
+        yaml_path = trainer_experiment(tmp)
+        bufs = dict(train_buf=ReplayBuffer(os.path.join(tmp, "train.npz")),
+                    val_buf=EvalBuffer(os.path.join(tmp, "val.npz")),
+                    test_buf=EvalBuffer(os.path.join(tmp, "test.npz")))
+        n_b = num_batches(len(bufs["train_buf"]), TRAINER_B)
+        n_val = num_batches(len(bufs["val_buf"]), EVAL_BATCH)
+        n_test = num_batches(len(bufs["test_buf"]), EVAL_BATCH)
+        print(f"[trainer] experiment: {len(bufs['train_buf'])} train rows ({n_b} batches of "
+              f"{TRAINER_B}), {len(bufs['val_buf'])} val, {len(bufs['test_buf'])} test rows, "
+              f"catalog {TRAINER_A}; built in {time.perf_counter() - t0:.2f} s")
+
+        # -- gru4rec through the CLI, as a user runs it
+        outcomes, logged = [], []
+        train = cli.train
+        cli.train = lambda *a, **k: outcomes.append(train(*a, **k)) or outcomes[-1]
+        sinks = cli.make_log_sinks
+        cli.make_log_sinks = lambda cfg: (lambda d, step: logged.append(d), lambda: None)
+        out = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            reset_counters()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["-f", yaml_path, "--progress"])
+            launches = counters()
+        finally:
+            cli.train, cli.make_log_sinks = train, sinks
+        for line in out.getvalue().splitlines():
+            print(f"[trainer] cli: {line}")
+        if rc != 0:
+            fail(f"the trainer CLI exited {rc}")
+        gru = outcomes[0]
+        printed = out.getvalue()
+        if json.loads(printed[printed.index("{"): printed.rindex("\nbest ")]) != json.loads(
+                open(os.path.join(tmp, "test_metrics.json")).read()):
+            fail("the CLI's printed test metrics differ from test_metrics.json")
+        for name in ("best_model.npz", "best_model.json", "embedding_weights.npy",
+                     "ckpt/ckpt_2.pt"):
+            if not os.path.exists(os.path.join(tmp, name)):
+                fail(f"the trainer CLI wrote no {name}")
+        emb = np.load(os.path.join(tmp, "embedding_weights.npy"))
+        if emb.shape != (TRAINER_A + 1, 64) or not np.isfinite(emb).all():
+            fail(f"embedding_weights.npy has shape {emb.shape} or non-finite entries")
+        check_logs("gru4rec", gru)
+        if len(logged) != 2 + len(gru.logs) or len(gru.logs) != 4:
+            fail(f"the CLI logged {len(logged)} dicts for {len(gru.logs)} eval points")
+        first = [d["Supervised Train Loss"] for d in gru.logs[::2]]
+        if not first[1] < first[0]:
+            fail(f"epoch 2's first-window train loss {first[1]} is not below epoch 1's {first[0]}")
+        want = trainer_launches("gru4rec", gru, 2 * n_b, n_val, n_test)
+        if launches != want:
+            fail(f"the gru4rec trainer launched {launches}, expected {want}")
+        paths["trainer_gru4rec"] = launches
+        trainer_line(f"gru4rec 2 epochs via the CLI, first-window train loss {first}", gru, smi,
+                     launches)
+
+        # -- sqn and smorl through train(cfg, buffers), 1 epoch
+        def run(family, epochs, sub, **train_kw):
+            cfg = load_experiment_config(yaml_path)
+            cfg.exp_dir = os.path.join(tmp, sub)
+            cfg.train.model, cfg.train.epochs, cfg.train.checkpoint_dir = family, epochs, None
+            cfg.experiment.save_pretrained_embeddings = False
+            for k, v in train_kw.items():
+                setattr(cfg.train if k != "train_metrics" else cfg.metrics, k, v)
+            extra = {}
+            if family == "smorl":
+                rs = np.random.RandomState(3)
+                extra["div_embedding"] = rs.randn(TRAINER_A + 1, 64).astype(np.float32)
+            return trainer.train(cfg, **bufs, **extra)
+
+        for family in ("sqn", "smorl"):
+            torch.cuda.synchronize()
+            reset_counters()
+            kw = dict(checkpoint_dir=os.path.join(tmp, "ckpt_sqn")) if family == "sqn" else {}
+            res = run(family, 1, family, **kw)
+            launches = counters()
+            check_logs(family, res)
+            if not all({"Sec_Val_NDCG@10", "Sec_Val_HR@10"} <= set(d) for d in res.logs):
+                fail(f"{family}: the second net's Sec_ metrics are missing")
+            want = trainer_launches(family, res, n_b, n_val, n_test)
+            if launches != want:
+                fail(f"the {family} trainer launched {launches}, expected {want}")
+            paths[f"trainer_{family}"] = launches
+            trainer_line(f"{family} 1 epoch via train()", res, smi, launches)
+            if family == "sqn":
+                sqn_leg1 = res
+
+        # -- determinism and resume (sqn): a 2-epoch run's first epoch is
+        # the 1-epoch run's bit for bit; its second, the resumed run's
+        full = run("sqn", 2, "sqn_full")
+        if full.logs[:2] != sqn_leg1.logs:
+            moved = {k: (a[k], b[k]) for a, b in zip(sqn_leg1.logs, full.logs) for k in a
+                     if a[k] != b.get(k)}
+            fail(f"two identical sqn runs differ: {moved}")
+        resumed = run("sqn", 2, "sqn_resumed", checkpoint_dir=os.path.join(tmp, "ckpt_sqn"),
+                      resume=True)
+        same = (resumed.logs == full.logs[2:] and resumed.test_metrics == full.test_metrics
+                and (resumed.best_metric, resumed.best_epoch) == (full.best_metric,
+                                                                  full.best_epoch))
+        if not same:
+            moved = {k: (a[k], b[k]) for a, b in zip(resumed.logs + [resumed.test_metrics],
+                                                    full.logs[2:] + [full.test_metrics])
+                     for k in b if a.get(k) != b[k]}
+            fail(f"a resumed sqn run differs from the uninterrupted one: {moved}; best "
+                 f"{resumed.best_metric} @ {resumed.best_epoch} against {full.best_metric} @ "
+                 f"{full.best_epoch}")
+        print(f"[trainer] sqn: a second run's epoch 1 and a resumed run's epoch 2 are "
+              f"bit-identical to the uninterrupted run's (best {full.best_metric:.6f} @ "
+              f"{full.best_epoch}, test {json.dumps(full.test_metrics)})")
+
+        # -- the same gru4rec epoch with train metrics off
+        off = run("gru4rec", 1, "gru4rec_off", train_metrics=False)
+        check_logs("gru4rec, train metrics off", off)
+        trainer_line("gru4rec 1 epoch, train_metrics off", off, smi, {})
+        print(f"[trainer] train metrics cost: gru4rec {gru.throughput_sessions_per_sec:.0f} "
+              f"sessions/s on (2 epochs) against {off.throughput_sessions_per_sec:.0f} off "
+              f"(1 epoch); {smi}")
+        if profile:
+            run("gru4rec", 1, "gru4rec_profiled", profile_dir=os.path.join(tmp, "trace"))
+            profile_trainer(os.path.join(tmp, "trace"))
+    print(f"[trainer] phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1426,6 +1708,7 @@ def main():
     paths["bidir_gru4rec"] = phase_train("bidir_gru4rec", profile=profile)
     paths["eval"] = phase_eval("gru4rec", smi, profile=profile)
     paths["eval_bidir_gru4rec"] = phase_eval("bidir_gru4rec", smi, profile=profile)
+    paths.update(phase_trainer(smi, profile=profile))
     # the card's machine has jax installed: show the port never loaded it
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))

@@ -1,18 +1,18 @@
-"""Evaluation buffers and their fixed-shape batches.
+"""Replay buffers and their fixed-shape batches.
 
-The port's own copy of the eval half of
-``ikea_recommender_tpu/data/replay_buffer.py`` (the reference's
-``ikea/data_utils/replay_buffer.py:85-127``): columnar numpy storage and an
-iterator of batches that all have one shape, the trailing partial batch
-padded by repeating its first row and carrying a ``valid`` mask that every
-metric respects.
+The port's own copy of ``ikea_recommender_tpu/data/replay_buffer.py`` (the
+reference's ``ikea/data_utils/replay_buffer.py:6-127``): columnar numpy
+storage of the train buffer (the 7-column contract) and the eval buffer,
+and iterators of batches that all have one shape, the trailing partial
+batch padded by repeating its first row and carrying a ``valid`` mask that
+every loss and metric respects.
 
 On-disk formats: ``.npz`` (the native columnar format, numpy only), pickled
 DataFrames (the RetailRocket generation) and JSON lines, the last two
 through pandas. Paths are local files, read directly: the reference's
 native JSON-lines parser and its ``Storage`` layer (object stores) are not
-ported; its pandas path gives the same columns. The train buffer comes with
-the trainer.
+ported; its pandas path gives the same columns. Files written by either
+package load in the other.
 """
 
 from __future__ import annotations
@@ -24,6 +24,20 @@ import numpy as np
 
 
 @dataclass
+class Batch:
+    """One fixed-shape training batch (numpy)."""
+
+    state: np.ndarray  # (B, L) int32
+    action: np.ndarray  # (B,) int32
+    reward: np.ndarray  # (B,) float32
+    next_state: np.ndarray  # (B, L) int32
+    true_len: np.ndarray  # (B,) int32
+    true_next_len: np.ndarray  # (B,) int32
+    is_end: np.ndarray  # (B,) bool
+    valid: np.ndarray  # (B,) bool, False on padded tail rows
+
+
+@dataclass
 class EvalBatch:
     state: np.ndarray  # (B, L) int32
     action: np.ndarray  # (B,) int32
@@ -32,6 +46,17 @@ class EvalBatch:
     action_type: Optional[np.ndarray] = None  # (B,) int32 when carried
 
 
+_TRAIN_COLS = (
+    "state",
+    "action",
+    "r_act",
+    "next_state",
+    "true_state_len",
+    "true_next_state_len",
+    "is_end",
+    # optional: each row's action-type id (enables metrics.action_type_names)
+    "action_type",
+)
 _EVAL_COLS = ("state", "action", "true_state_len", "action_type")
 
 
@@ -56,6 +81,73 @@ def _load_columns(path: str, columns):
         else:
             out[c] = df[c].to_numpy()
     return out
+
+
+class ReplayBuffer:
+    """Training buffer: the 7-column contract, fully materialized as arrays
+    (the reference materializes to numpy at init too,
+    ``ikea/data_utils/replay_buffer.py:51-57``)."""
+
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        *,
+        state: Optional[np.ndarray] = None,
+        action: Optional[np.ndarray] = None,
+        reward: Optional[np.ndarray] = None,
+        next_state: Optional[np.ndarray] = None,
+        true_len: Optional[np.ndarray] = None,
+        true_next_len: Optional[np.ndarray] = None,
+        is_end: Optional[np.ndarray] = None,
+        action_type: Optional[np.ndarray] = None,
+    ):
+        if path is not None:
+            cols = _load_columns(path, _TRAIN_COLS)
+            state = cols["state"]
+            action = cols["action"]
+            reward = cols["r_act"]
+            next_state = cols["next_state"]
+            true_len = cols["true_state_len"]
+            true_next_len = cols["true_next_state_len"]
+            is_end = cols["is_end"]
+            action_type = cols.get("action_type")
+        self.state = np.asarray(state, dtype=np.int32)
+        self.action = np.asarray(action, dtype=np.int32)
+        self.reward = np.asarray(reward, dtype=np.float32)
+        self.next_state = np.asarray(next_state, dtype=np.int32)
+        self.true_len = np.asarray(true_len, dtype=np.int32)
+        self.true_next_len = np.asarray(true_next_len, dtype=np.int32)
+        self.is_end = np.asarray(is_end, dtype=bool)
+        self.action_type = None if action_type is None else np.asarray(action_type, np.int32)
+
+    @classmethod
+    def from_dataframe(cls, df) -> "ReplayBuffer":
+        return cls(
+            state=np.asarray(df["state"].values.tolist()),
+            action=df["action"].to_numpy(),
+            reward=df["r_act"].to_numpy(),
+            next_state=np.asarray(df["next_state"].values.tolist()),
+            true_len=df["true_state_len"].to_numpy(),
+            true_next_len=df["true_next_state_len"].to_numpy(),
+            is_end=df["is_end"].to_numpy(),
+        )
+
+    def save_npz(self, path: str) -> None:
+        cols = dict(
+            state=self.state,
+            action=self.action,
+            r_act=self.reward,
+            next_state=self.next_state,
+            true_state_len=self.true_len,
+            true_next_state_len=self.true_next_len,
+            is_end=self.is_end,
+        )
+        if self.action_type is not None:
+            cols["action_type"] = self.action_type
+        np.savez_compressed(path, **cols)
+
+    def __len__(self) -> int:
+        return len(self.action)
 
 
 class EvalBuffer:
@@ -88,6 +180,13 @@ class EvalBuffer:
             state=np.asarray(df["state"].values.tolist()),
             action=df["action"].to_numpy(),
             true_len=df["true_state_len"].to_numpy(),
+        )
+
+    @classmethod
+    def from_replay_buffer(cls, buf: ReplayBuffer) -> "EvalBuffer":
+        return cls(
+            state=buf.state, action=buf.action, true_len=buf.true_len,
+            action_type=buf.action_type,
         )
 
     def save_npz(self, path: str) -> None:
@@ -150,6 +249,35 @@ def _pad_take(arr: np.ndarray, idx: np.ndarray, batch_size: int) -> np.ndarray:
 
 def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:
     return n // batch_size if drop_last else -(-n // batch_size)
+
+
+def train_batches(
+    buf: ReplayBuffer,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    shuffle: bool = True,
+    drop_last: bool = False,
+) -> Iterator[Batch]:
+    """Shuffled fixed-shape batches; the trailing batch padded and masked."""
+    n = len(buf)
+    idx = np.arange(n)
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
+    stop = (n // batch_size) * batch_size if drop_last else n
+    for lo in range(0, stop, batch_size):
+        take = idx[lo : lo + batch_size]
+        valid = np.zeros(batch_size, dtype=bool)
+        valid[: len(take)] = True
+        yield Batch(
+            state=_pad_take(buf.state, take, batch_size),
+            action=_pad_take(buf.action, take, batch_size),
+            reward=_pad_take(buf.reward, take, batch_size),
+            next_state=_pad_take(buf.next_state, take, batch_size),
+            true_len=_pad_take(buf.true_len, take, batch_size),
+            true_next_len=_pad_take(buf.true_next_len, take, batch_size),
+            is_end=_pad_take(buf.is_end, take, batch_size),
+            valid=valid,
+        )
 
 
 def eval_batches(buf: EvalBuffer, batch_size: int, drop_last: bool = False) -> Iterator[EvalBatch]:

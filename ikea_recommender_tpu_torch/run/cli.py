@@ -1,0 +1,60 @@
+"""CLI driver: ``python -m ikea_recommender_tpu_torch.run.cli -f experiment.yaml``.
+
+The port's counterpart of ``ikea_recommender_tpu/run/cli.py``: one driver,
+the model family comes from the config, and the config file's directory
+becomes the experiment output dir. It prints the test metrics as JSON and a
+``best <metric>=... @ eval point N; S sessions/s`` line. ``--device``
+(default ``cuda``) takes the place of the reference's ``IKEA_PLATFORM``
+override; ``--device cpu`` runs the kernels' plain twins. Dense products
+run with TF32 off.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from ikea_recommender_tpu_torch.core.config import load_experiment_config
+from ikea_recommender_tpu_torch.run.logging_sinks import make_log_sinks
+from ikea_recommender_tpu_torch.run.trainer import train
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument(
+        "-f", "--file", dest="filename", metavar="FILE", required=True,
+        help="experiment definition YAML",
+    )
+    parser.add_argument(
+        "--progress", action="store_true", help="print per-eval-point progress"
+    )
+    parser.add_argument(
+        "--device", default="cuda", help="torch device to train on (default: cuda)"
+    )
+    return parser
+
+
+def main(argv=None) -> int:
+    args = get_parser().parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_experiment_config(args.filename)
+    log_fn, close_fn = make_log_sinks(cfg)
+    try:
+        outcome = train(cfg, log_fn=log_fn, progress=args.progress, device=args.device)
+    finally:
+        close_fn()
+    print(json.dumps(outcome.test_metrics, indent=2))
+    print(
+        f"best {cfg.train.best_model_metric}={outcome.best_metric:.5f} "
+        f"@ eval point {outcome.best_epoch}; "
+        f"{outcome.throughput_sessions_per_sec:.0f} sessions/s"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
