@@ -55,13 +55,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the coins drawn on the host, whose counters must show per step B1, B2,
    B5 once and B3 three times (sqn), or B2, B6 once and B3 three times and
    no B1 (smorl), and B4 once;
-7. train bidir_gru4rec: the CE step at the width of
+7. train sarm: the sarm step at the same width and settings
+   (``RLStepConfig()``: sarm_gamma 0.99; five Q heads, head 0 also the CE
+   head; params from seed 0; bench.py batches, some rows at an episode
+   end, one with a padded tail): 3 steps held to CPU copies (losses,
+   first-step gradients, head 0's unlabelled columns at their own scale,
+   params over the moved entries); the five-head target max
+   (``ops/fused_topk.py::blockwise_multihead_max``, plain torch products)
+   held to its dense fp32 form within the "high" split's rounding and
+   timed ("[train] sarm target max": CUDA graph, eager, launches, bound,
+   the dense form's time); then 1 warm-up and 20 timed steps whose
+   counters must show per step B1, B2 and B4 once, B3 twice, no B5 or B6;
+8. train bidir_gru4rec: the CE step at the width of
    ``experiments/Ablations/BidirGRU-128/BidirGRU-128.yaml`` (E 64, H 128, so
    the head input is F = 256; lr 0.0005, dropout 0.35 on the head input),
    as phase 5, with the card and the CPU copies given the same dropout
    masks for the checked steps and params held to lr / 1000; per timed
    step B1 and B2 once, B3 and B4 twice (both directions);
-8. eval: ``eval.protocol.EvalProtocol.evaluate`` at the eval batch
+9. eval: ``eval.protocol.EvalProtocol.evaluate`` at the eval batch
    ``val_batch_size`` = 2000 over 20011 rows (11 batches, the last with 11
    valid rows), windowed by ``data.preprocessing.window_sessions`` from
    seeded sessions of 1-20 items: gru4rec at the RetailRocket width, then
@@ -77,7 +88,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    passes bit-identical; the counters of a pass show B3 once per batch and
    direction and no other kernel. "[eval]" gives ms per pass, ms per batch
    and sessions/s;
-9. trainer: ``run/trainer.py::train`` at the RetailRocket width on an
+10. trainer: ``run/trainer.py::train`` at the RetailRocket width on an
    experiment built by the port's ``data/synthetic.py`` and
    ``data/split.py`` (16391 train rows, 65 steps of 256 an epoch; 4139 val
    and 4046 test rows at the eval batch 2000): gru4rec for 2 epochs (eval
@@ -86,7 +97,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the test metrics it writes, write the best model, the checkpoint and
    a (70853, 64) embedding, log only finite values, and lower epoch 2's
    first-window train loss below epoch 1's; sqn and smorl for 1 epoch
-   through ``train(cfg, train_buf=...)``, with both nets' ``Sec_`` keys.
+   through ``train(cfg, train_buf=...)``, with both nets' ``Sec_`` keys;
+   sarm for 1 epoch the same way from its own YAML, one net and no
+   ``Sec_`` keys, whose ``best_model.npz`` then answers 512 val sessions in
+   one batch through ``run.recommend.main`` (B3 once, no other kernel),
+   top-1 the argmax of the config's head's and head 3's full masked scores.
    Each run's launch counters, reset just before, must equal ``PER_STEP``
    per step plus B3 once per eval batch (each train-metrics batch, the
    val passes of each net, the test pass). sqn then runs 2 epochs, whose
@@ -834,8 +849,9 @@ CE_POINTS = {
 # clear at every step (all entries, the head kernel's), as this script's
 # seeded data gives them, read off the CPU side: gru4rec 0.339 and 0.299,
 # bidir_gru4rec 0.1908 and 0.1763 (most of its head's entries take a
-# nonzero gradient below 1e-6 at some step).
-COMPARED_FLOORS = {"gru4rec": (0.3, 0.25), "bidir_gru4rec": (0.17, 0.15)}
+# nonzero gradient below 1e-6 at some step), sarm 0.3283 and 0.2870 (its
+# five heads' kernel).
+COMPARED_FLOORS = {"gru4rec": (0.3, 0.25), "bidir_gru4rec": (0.17, 0.15), "sarm": (0.3, 0.25)}
 
 
 @contextlib.contextmanager
@@ -976,7 +992,8 @@ def phase_train(family="gru4rec", profile=False):
 
 
 # Launches per train step of each kernel, by family (B3 runs on the state,
-# and in sqn and smorl also on the next state with each net).
+# in sqn and smorl also on the next state with each net, in sarm with its
+# one net).
 PER_STEP = {
     "gru4rec": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 1, "B4 gru_bwd": 1},
     "bidir_gru4rec": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 2,
@@ -984,6 +1001,7 @@ PER_STEP = {
     "sqn": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1,
             "B5 fused_argmax": 1},
     "smorl": {"B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1, "B6 fused_wargmax": 1},
+    "sarm": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 2, "B4 gru_bwd": 1},
 }
 
 
@@ -1147,6 +1165,177 @@ def phase_double_q(family, profile=False):
     if not torch.isfinite(torch.stack(metrics)).all():
         fail(f"non-finite {family} train loss")
     step_ms_line(family, A, E, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
+    if profile:
+        profile_train(step, state, batches[-1])
+    return launches
+
+
+def multihead_max_bound(B, F, valid, K, precision):
+    """Least time for sarm's target max over the ``valid`` columns: h, the
+    K heads' valid columns of W and b read once, the (B, K) maxima written
+    once; K (B, F, valid) products, three bf16 passes each in "high" on the
+    tensor cores, one in "default", fp32 FMA in "highest" (the maxima's
+    comparisons, ~K B valid operations, not counted)."""
+    passes = {"highest": 1, "high": 3, "default": 1}[precision]
+    peak = FP32_FLOPS if precision == "highest" else BF16_FLOPS
+    n_bytes = 4 * (B * F + K * F * valid + K * valid + B * K)
+    return bound(n_bytes, 2.0 * B * F * valid * K * passes, peak)
+
+
+def cuda_items(fn):
+    """The CUDA kernels one call of ``fn`` runs, under torch.profiler:
+    (busy us, launches, [(us, count, name)] largest first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e[0])
+    return sum(e[0] for e in events), sum(e[1] for e in events), events
+
+
+def phase_sarm(profile=False):
+    """The sarm train step at full width (five Q heads of (64, 70852), head
+    0 also the CE head; ``RLStepConfig()``: sarm_gamma 0.99): 3 steps
+    against CPU copies, then 1 warm-up and 20 timed steps; and the
+    five-head target max (``blockwise_multihead_max``, plain torch) timed
+    at the step's shapes against its dense fp32 form. Returns the timed
+    run's launches."""
+    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
+    from ikea_recommender_tpu_torch.models.families import apply_features, model_config_from_train
+    from ikea_recommender_tpu_torch.ops.fused_topk import blockwise_multihead_max
+    from ikea_recommender_tpu_torch.train.state import make_train_state
+    from ikea_recommender_tpu_torch.train.steps import (
+        RLStepConfig,
+        make_train_step,
+        sarm_loss_and_grads,
+    )
+
+    A, E, T, B, LR, N_CHECK, N_TIMED = 70852, 64, 10, 256, 0.01, 3, 20
+    tc = TrainConfig(model="sarm", batch_size=B, embedding_size=E, hidden_state_size=E,
+                     state_size=T, learning_rate=LR, fused_ce=True, head_precision="high")
+    mc = model_config_from_train(tc, DataConfig(num_items=A))
+    rl = RLStepConfig()
+    if not (mc.fused_ce and mc.head_precision == "high" and mc.num_q_heads == 5
+            and rl.sarm_gamma == 0.99):
+        fail("sarm at the RetailRocket width must train 5 heads through the fused path in "
+             "'high' at sarm_gamma 0.99")
+    K = mc.num_q_heads
+    np_params = numpy_init_params(mc, seed=0)
+    rs = np.random.RandomState(0)
+    batches = [bench_batch(rs, B, A, T) for _ in range(N_CHECK + 1 + N_TIMED)]
+    batches[N_CHECK - 1]["valid"][200:] = False  # a tail batch of 200 sessions
+    ends = [int(b["is_end"].sum()) for b in batches[:N_CHECK]]
+
+    def on(dev, batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    # -- the same 3 steps on the card and on CPU copies, where the twins run
+    states, steps = {}, {}
+    for dev in ("cuda", "cpu"):
+        states[dev], opt = make_train_state(params_from_numpy(np_params, dev), mc, LR, device=dev)
+        steps[dev] = make_train_step(mc, opt, rl, device=dev)
+    grads = {dev: sarm_loss_and_grads(states[dev].params, on(dev, batches[0]), mc, rl)[1]
+             for dev in states}
+    # first-step gradients, per leaf, as the gru4rec phase holds them; head
+    # 0's unlabelled columns (the CE's softmax term only) at their own scale
+    got_g, want_g = (named_leaves(grads[dev]) for dev in ("cuda", "cpu"))
+    off = torch.ones(A, dtype=torch.bool)
+    off[torch.as_tensor(batches[0]["action"]).long()] = False
+    for d in (got_g, want_g):
+        d["q_heads/kernel 0 off-label"] = d["q_heads/kernel"][0][:, off]
+        d["q_heads/bias 0 off-label"] = d["q_heads/bias"][0][off]
+    grad_err = check_close([got_g[k] for k in want_g], list(want_g.values()), list(want_g),
+                           "sarm step: first-step gradient against the CPU twins", 1e-4)
+    losses = {"cuda": [], "cpu": []}
+    mus = [named_leaves(states["cpu"].opt_state.mu)]
+    for b in batches[:N_CHECK]:
+        for dev in states:
+            states[dev], m = steps[dev](states[dev], b)
+            losses[dev].append((m["sup_loss"].item(), m["q_loss"].item()))
+        mus.append(named_leaves(states["cpu"].opt_state.mu))
+    loss_err = max(abs(a - c) for x, y in zip(losses["cuda"], losses["cpu"]) for a, c in zip(x, y))
+    if loss_err > 1e-4:
+        fail(f"sarm step: losses {losses['cuda']} differ from the CPU twins' {losses['cpu']}")
+    # params after 3 steps over the entries some step moved, as the gru4rec
+    # phase holds them (atol lr / 1000)
+    got_p, want_p = (named_leaves(states[dev].params) for dev in ("cuda", "cpu"))
+    compared, param_err, worst = {}, 0.0, None
+    for name, want in want_p.items():
+        g = torch.stack([(mus[k + 1][name] - 0.9 * mus[k][name]) / 0.1 for k in range(N_CHECK)])
+        moved = (g != 0).any(dim=0)
+        sure = moved & ((g == 0) | (g.abs() > 1e-6)).all(dim=0)
+        err = (got_p[name] - want)[sure].abs().max().item() if sure.any() else 0.0
+        if err > param_err:
+            param_err, worst = err, name
+        compared[name] = (int(sure.sum()), int(moved.sum()))
+    n_sure, n_moved = (sum(c[i] for c in compared.values()) for i in (0, 1))
+    head_sure, head_moved = compared["q_heads/kernel"]
+    print(f"[train] sarm: {N_CHECK} steps on the card vs the CPU twins (rows at an episode end "
+          f"{ends}): losses (sup, q) {losses['cuda']}, max loss diff {loss_err:.3g}; first-step "
+          f"grads rel diff {json.dumps(grad_err)}; params max diff {param_err:.3g} ({worst}) over "
+          f"{n_sure} of {n_moved} moved entries ({n_sure / n_moved:.4f}; head kernel {head_sure} "
+          f"of {head_moved}, {head_sure / head_moved:.4f})")
+    if param_err > LR / 1000:
+        fail(f"sarm step: {worst} after {N_CHECK} steps differs by {param_err:.3g}")
+    floor_all, floor_head = COMPARED_FLOORS["sarm"]
+    if n_sure < floor_all * n_moved or head_sure < floor_head * head_moved:
+        fail(f"sarm step: too few params compared: {compared} (compared, moved)")
+
+    # -- the five-head target max at the step's shapes: against its dense
+    # fp32 form (one batched cuBLAS product and a max over (K, B, A)), whose
+    # products it splits into three bf16 passes in "high"
+    state, step = states["cuda"], steps["cuda"]
+    del states["cpu"]
+    qh = state.params["q_heads"]
+    bn = on("cuda", batches[N_CHECK])
+    with torch.no_grad():
+        h_next = apply_features(state.params, mc, bn["next_state"], bn["true_next_len"])
+
+    def target_max():
+        return blockwise_multihead_max(h_next, qh["kernel"], qh["bias"], A, precision="high")
+
+    def dense_max():
+        return torch.baddbmm(qh["bias"][:, None, :], h_next.expand(K, -1, -1),
+                             qh["kernel"]).amax(dim=2).T
+
+    got, want = target_max(), dense_max()
+    scale = torch.einsum("bf,kfa->bka", h_next.abs(), qh["kernel"].abs()).amax(dim=2)
+    max_err_ = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or ((got - want).abs() > 3 * 2.0**-16 * scale + 1e-5).any():
+        fail(f"sarm target max differs from its dense fp32 form by {max_err_:.3g}")
+    busy_us, n_launch, items = cuda_items(target_max)
+    mh = {"ms": graph_ms(target_max, 20), "eager_ms": eager_ms(target_max, 20),
+          "dense_ms": graph_ms(dense_max, 20), "launches": n_launch,
+          "bound": multihead_max_bound(B, E, A, K, "high")}
+    print(f"[train] sarm target max (B={B}, K={K}, F={E}, A={A}, blocks of 4096, high): "
+          f"{mh['ms']:.6f} ms in a CUDA graph, {mh['eager_ms']:.6f} eager, {n_launch} launches "
+          f"({busy_us:.1f} us busy under the profiler); bound {mh['bound'][0]:.6f} ms "
+          f"({mh['bound'][1]}); dense fp32 (baddbmm + amax) {mh['dense_ms']:.6f} ms; max diff "
+          f"{max_err_:.3g}")
+    for us, count, name in items[:6]:
+        print(f"[train]   target max: {us:10.1f} us  x{count:<4d} {name[:90]}")
+
+    # -- timed: the card's state goes on; 1 warm-up step, then 20 steps
+    state, _ = step(state, batches[N_CHECK])
+    torch.cuda.synchronize()
+    reset_counters()
+    step_ms, metrics = [], []
+    for b in batches[N_CHECK + 1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m["sup_loss"] + m["q_loss"])
+    launches = counters()
+    check_launches("sarm", launches, N_TIMED)
+    if not torch.isfinite(torch.stack(metrics)).all():
+        fail("non-finite sarm train loss")
+    step_ms_line("sarm", A, E, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
     if profile:
         profile_train(step, state, batches[-1])
     return launches
@@ -1549,10 +1738,62 @@ def profile_trainer(trace_dir):
         print(f"[profile]   {us:10.1f} us  {name[:90]}")
 
 
+def serve_trained_sarm(yaml_path, val_buf, n_rows=512, k=10):
+    """The sarm trainer's ``best_model.npz`` answers ``n_rows`` val sessions
+    in one batch through ``run.recommend.main``, scored by the config's
+    head; top-1 must be the argmax of that head's full masked scores, and
+    of head 3's through ``Recommender`` as well. Returns the CLI's
+    launches."""
+    import os
+
+    from ikea_recommender_tpu_torch.core.config import load_experiment_config
+    from ikea_recommender_tpu_torch.models.families import model_config_from_train
+    from ikea_recommender_tpu_torch.run import recommend
+    from ikea_recommender_tpu_torch.run.checkpoints import load_params_npz
+    from ikea_recommender_tpu_torch.run.serve import Recommender
+
+    cfg = load_experiment_config(yaml_path)
+    exp = cfg.exp_dir
+    rows = [{"state": val_buf.state[i, : val_buf.true_len[i]].tolist(), "id": i}
+            for i in range(n_rows)]
+    with open(os.path.join(exp, "sessions.jsonl"), "w") as fh:
+        fh.writelines(json.dumps(r) + "\n" for r in rows)
+    torch.cuda.synchronize()
+    reset_counters()
+    recommend.main(["-f", yaml_path, "--input", os.path.join(exp, "sessions.jsonl"),
+                    "--output", os.path.join(exp, "recs.jsonl"), "--k", str(k)])
+    launches = counters()
+    if launches != {name: int(name == "B3 gru_fwd") for name in launches}:
+        fail(f"one served batch of {n_rows} launched {launches}")
+    with open(os.path.join(exp, "recs.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    if len(records) != n_rows or any(len(r["predictions"]) != k for r in records):
+        fail("the sarm model's recommendations have the wrong number of rows or ids")
+    mc = model_config_from_train(cfg.train, cfg.data)
+    params = load_params_npz(os.path.join(exp, "best_model.npz"), device="cuda")
+    states, lens = (torch.as_tensor(a, device="cuda") for a in recommend.pad_batch(
+        rows, cfg.train.state_size, cfg.padding_id, cfg.train.padding_position))
+    top1 = {cfg.train.head_idx: torch.tensor([r["predictions"][0] for r in records],
+                                             device="cuda")}
+    rec3 = Recommender(params, mc, head_idx=3, device="cuda")
+    top1[3] = rec3.recommend(states, lens, k=1)[1][:, 0]
+    for head, ids in top1.items():
+        # top-1 is the argmax, up to products summed in another order
+        scores = Recommender(params, mc, head_idx=head, device="cuda").scores(states, lens)
+        gap = (scores.max(dim=1).values - scores.gather(1, ids[:, None])[:, 0]).max().item()
+        if not (torch.isfinite(scores).all() and gap <= GAP):
+            fail(f"the sarm model's top-1 is not the argmax of head {head}'s scores ({gap:.3g})")
+    print(f"[trainer] sarm serving: best_model.npz answered {n_rows} val sessions in one batch "
+          f"through run/recommend.py (head {cfg.train.head_idx}; launches {json.dumps(launches)}); "
+          f"top-1 is the argmax of heads {sorted(top1)}' full masked scores")
+    return launches
+
+
 def phase_trainer(smi, profile=False):
     """The trainer (run/trainer.py) at the RetailRocket width: gru4rec for 2
-    epochs through the CLI, sqn and smorl for 1 epoch through ``train``,
-    sqn again for determinism and resume, gru4rec with train metrics off
+    epochs through the CLI, sqn, smorl and sarm for 1 epoch through
+    ``train`` (sarm's best model then served), sqn again for determinism
+    and resume, gru4rec with train metrics off
     (and with ``profile``, one epoch traced over its first span). Returns
     each checked run's launches."""
     import contextlib
@@ -1654,6 +1895,29 @@ def phase_trainer(smi, profile=False):
             if family == "sqn":
                 sqn_leg1 = res
 
+        # -- sarm through train(cfg, buffers), 1 epoch, from its own YAML;
+        # its best model then answers a batch of 512 through run/recommend.py
+        os.makedirs(os.path.join(tmp, "sarm"))
+        sarm_yaml = os.path.join(tmp, "sarm", "experiment.yaml")
+        with open(yaml_path) as src, open(sarm_yaml, "w") as dst:
+            dst.write(src.read().replace('model: "gru4rec"', 'model: "sarm"'))
+        torch.cuda.synchronize()
+        reset_counters()
+        res = run("sarm", 1, "sarm")
+        launches = counters()
+        check_logs("sarm", res)
+        if any(k.startswith("Sec_") for d in res.logs for k in d):
+            fail("sarm trains one net, but its logs hold Sec_ metrics")
+        want = trainer_launches("sarm", res, n_b, n_val, n_test)
+        if launches != want:
+            fail(f"the sarm trainer launched {launches}, expected {want}")
+        for name in ("best_model.npz", "best_model.json", "test_metrics.json"):
+            if not os.path.exists(os.path.join(tmp, "sarm", name)):
+                fail(f"the sarm trainer wrote no {name}")
+        paths["trainer_sarm"] = launches
+        trainer_line("sarm 1 epoch via train()", res, smi, launches)
+        paths["trainer_sarm_serving"] = serve_trained_sarm(sarm_yaml, bufs["val_buf"])
+
         # -- determinism and resume (sqn): a 2-epoch run's first epoch is
         # the 1-epoch run's bit for bit; its second, the resumed run's
         full = run("sqn", 2, "sqn_full")
@@ -1705,6 +1969,7 @@ def main():
              "gru4rec": phase_train("gru4rec", profile=profile)}
     for family in ("sqn", "smorl"):
         paths[family] = phase_double_q(family, profile=profile)
+    paths["sarm"] = phase_sarm(profile=profile)
     paths["bidir_gru4rec"] = phase_train("bidir_gru4rec", profile=profile)
     paths["eval"] = phase_eval("gru4rec", smi, profile=profile)
     paths["eval_bidir_gru4rec"] = phase_eval("bidir_gru4rec", smi, profile=profile)

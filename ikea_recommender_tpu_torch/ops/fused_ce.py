@@ -63,9 +63,15 @@ def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
         return a @ b
     if precision == "default":
         return _bf16(a) @ _bf16(b)
-    a_hi, b_hi = _bf16(a), _bf16(b)
-    a_lo, b_lo = _bf16(a - a_hi), _bf16(b - b_hi)
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
     return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def _split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 high part and bf16 residual of ``x``, as fp32: "high"'s
+    operands."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
 
 
 def _masked_logits(h, w, b, valid_dim, precision):

@@ -1,11 +1,12 @@
 """Head + top-k + softmax-CE over column blocks: the (B, A) logits never
 exist whole.
 
-Port of ``ikea_recommender_tpu/ops/fused_topk.py`` (``blockwise_head_topk_ce``
-and ``eval_head``). The reference runs a ``lax.scan`` over 4096-column
-blocks of the head, not a Pallas kernel; here it is a loop over the same
-blocks, each one head product. Per sample it keeps an exact running top-k,
-a running logsumexp and the label logit.
+Port of ``ikea_recommender_tpu/ops/fused_topk.py`` (``blockwise_head_topk_ce``,
+``blockwise_multihead_max`` and ``eval_head``). The reference runs a
+``lax.scan`` over 4096-column blocks of the head, not a Pallas kernel; here
+it is a loop over the same blocks, each one head product. Per sample it
+keeps an exact running top-k, a running logsumexp and the label logit, or
+(sarm's bootstrap target) each head's running max.
 
 ``precision`` names the head product's precision as the fused CE does
 (``ops/fused_ce.py::_dot``): None or ``"highest"`` is fp32, ``"high"`` the
@@ -29,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ikea_recommender_tpu_torch.models.families import canonicalize_qheads
-from ikea_recommender_tpu_torch.ops.fused_ce import _dot
+from ikea_recommender_tpu_torch.ops.fused_ce import _bf16, _dot, _split
 
 # Masked (padded / not-yet-seen) logit sentinel. Finite so the running-max
 # rescale exp(m_old - m_new) never sees inf - inf.
@@ -134,6 +135,47 @@ def blockwise_head_topk_ce(
         return top_v, top_i, m, s, lbl
     per_ce = (m + torch.log(s)) - lbl if want_ce else None
     return top_v, top_i, per_ce
+
+
+def blockwise_multihead_max(
+    h: torch.Tensor,  # (B, F)
+    kernel: torch.Tensor,  # (K, F, A_pad) stacked head kernel
+    bias: torch.Tensor,  # (K, A_pad)
+    action_dim: int,  # REAL catalog size; cols >= action_dim are masked
+    block_cols: int = DEFAULT_BLOCK_COLS,
+    precision: Optional[str] = None,  # None = fp32, as "highest"
+) -> torch.Tensor:
+    """(B, K): each head's max over the masked ``h @ kernel[k] + bias[k]``,
+    never writing the (B, K, A) values: sarm's self-bootstrapped target
+    (reference ``sarm.py:143-146``). Forward only. The operands are split
+    into ``_dot``'s bf16 pieces once; each block is one product per piece
+    batched over the K heads, added to the block's bias and the pieces
+    before it in the product's own accumulate (``baddbmm``, in place after
+    the first): ``_dot`` plus the bias, summed in another order. Masked
+    columns count as -1e30, as in the reference; the last block stops at
+    the real catalog instead of being padded with columns that the mask
+    would set to -1e30, and a block with no real column is skipped:
+    neither can change a max."""
+    h, kernel, bias = h.detach(), kernel.detach(), bias.detach()
+    K, _, A_pad = kernel.shape
+    block_cols = min(block_cols, A_pad)
+    precision = precision or "highest"
+    if precision == "highest":
+        pieces = [(h, kernel)]
+    elif precision == "default":
+        pieces = [(_bf16(h), _bf16(kernel))]
+    else:  # "high": hi hi + hi lo + lo hi, in _dot's order
+        (h_hi, h_lo), (w_hi, w_lo) = _split(h), _split(kernel)
+        pieces = [(h_hi, w_hi), (h_hi, w_lo), (h_lo, w_hi)]
+    m = torch.full((K, h.shape[0]), _NEG, device=h.device)
+    for start in range(0, min(action_dim, A_pad), block_cols):
+        stop = min(start + block_cols, A_pad, action_dim)
+        (a, w), rest = pieces[0], pieces[1:]
+        logits = torch.baddbmm(bias[:, None, start:stop], a.expand(K, -1, -1), w[:, :, start:stop])
+        for a, w in rest:  # (K, B, W), accumulated in place
+            logits.baddbmm_(a.expand(K, -1, -1), w[:, :, start:stop])
+        m = torch.maximum(m, logits.amax(dim=2))
+    return m.T
 
 
 def eval_head(params: Dict, model_cfg, head_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:

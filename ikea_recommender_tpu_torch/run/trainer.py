@@ -1,8 +1,8 @@
 """Training orchestration on one device.
 
 Port of ``ikea_recommender_tpu/run/trainer.py::train`` (:355): one engine
-for gru4rec, bidir_gru4rec, sqn and smorl, configured by the experiment
-config. What it keeps of the reference:
+for gru4rec, bidir_gru4rec, sqn, smorl and sarm, configured by the
+experiment config. What it keeps of the reference:
 
 - the data path: buffers, tokenizers (``out_to_in``, and ``num_items`` /
   ``num_actions`` from their sizes), the unpopular mask, the frozen
@@ -34,8 +34,11 @@ the TPU's one-dispatch form and are not ported), and the params come in
 rather than being drawn: the port cannot reproduce JAX's PRNG init, so
 ``train`` starts from ``convert.numpy_init_params`` (``numpy_init_double_q``
 for the double-Q pair) seeded by the config, or from ``init_params``.
-sarm, the lazy optimizers and a device mesh raise, naming their ROADMAP
-item.
+The lazy optimizers (``optimizer: lazy_adam``, and ``qhead_optimizer:
+lazy_adam`` on sqn, smorl or sarm, set or from ``preset: fast``) and a
+device mesh raise, naming their ROADMAP item. The preset's fallback to
+dense Adam comes with the lazy arm, so the port never trains dense Adam
+where the reference would run its lazy Adam.
 """
 
 from __future__ import annotations
@@ -86,7 +89,6 @@ from ikea_recommender_tpu_torch.utils.logging_dicts import (
 )
 
 DOUBLE_Q_FAMILIES = ("sqn", "smorl")
-_SARM = "sarm training comes with ROADMAP A.7"
 _LAZY = "the lazy optimizers and the preset fallback come with ROADMAP A.8"
 _MESH = "comes with the multi-GPU slice (ROADMAP A.9)"
 
@@ -195,8 +197,6 @@ def _check_supported(cfg: Config) -> None:
     """Raises for what later slices of the port bring, naming the item."""
     t_cfg, p_cfg = cfg.train, cfg.parallel
     family = t_cfg.model
-    if family == "sarm":
-        raise NotImplementedError(_SARM)
     if t_cfg.optimizer not in ("adam", "lazy_adam"):
         raise ValueError(f"unknown optimizer {t_cfg.optimizer!r}")
     if t_cfg.qhead_optimizer not in (None, "adam", "lazy_adam"):
@@ -204,7 +204,7 @@ def _check_supported(cfg: Config) -> None:
     # qhead_optimizer is a no-op for families without Q heads (the fast
     # preset sets it unconditionally), as in the reference
     if t_cfg.optimizer == "lazy_adam" or (
-        t_cfg.qhead_optimizer == "lazy_adam" and family in DOUBLE_Q_FAMILIES
+        t_cfg.qhead_optimizer == "lazy_adam" and family in ("sqn", "smorl", "sarm")
     ):
         raise NotImplementedError(f"optimizer 'lazy_adam': {_LAZY}")
     if p_cfg.enabled:
@@ -318,6 +318,7 @@ def train(
         padding_pos=t_cfg.padding_position,
         compat_boot_len_bug=t_cfg.compat_boot_len_bug,
         compat_div_len_bug=t_cfg.compat_div_len_bug,
+        sarm_gamma=t_cfg.sarm_gamma,
         single_optimizer=(t_cfg.double_q_optimizers == 1),
     )
     lr, mv = t_cfg.learning_rate, t_cfg.optimizer_mv_dtype

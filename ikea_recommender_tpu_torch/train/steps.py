@@ -1,10 +1,11 @@
-"""Train steps: the supervised CE step of gru4rec and bidir_gru4rec, and the
-double-Q steps of sqn and smorl.
+"""Train steps: the supervised CE step of gru4rec and bidir_gru4rec, the
+double-Q steps of sqn and smorl, and the self-bootstrapped step of sarm.
 
 Port of ``ikea_recommender_tpu/train/steps.py`` (``RLStepConfig``,
 ``_masked_mean``, ``_ce_loss``, ``_fused_sup_ce``, ``_apply_grad_mask``,
 ``ce_train_step``, ``_double_q_run``, ``sqn_train_step``,
-``smorl_train_step``, ``TrainStep`` and ``make_train_step``).
+``smorl_train_step``, ``sarm_train_step``, ``TrainStep`` and
+``make_train_step``).
 
 The CE step (reference ``models/GRU4Rec/model.py:131-158``): embedding
 gather, the GRU layers (B3 forward and B4 backward on the card), the
@@ -29,11 +30,24 @@ next-state forwards run under ``no_grad``, so a step runs B3 three times
 and B4 once. :func:`double_q_loss_and_grads` gives one net's loss and
 gradients on their own.
 
+The sarm step (reference ``sarm.py:116-152``) trains one net of five Q
+heads whose head 0 is also the supervised head: the CE on head 0 plus the
+mean over heads of each head's masked-mean TD loss, where head k
+bootstraps from its own max over the catalog on the same net's next state,
+``r + sarm_gamma * max_a Q_k(s', a)``, zero at episode ends (the
+reference's deliberate departure from the original, which never applied
+its ``is_end`` mask). There is no coin, no second net and no ``alpha``. On
+the fused path the CE is B1/B2 on head 0, Q(s, a) a row gather of every
+head and the targets ``ops/fused_topk.py::blockwise_multihead_max``, plain
+products over column blocks; the next-state forward runs under
+``no_grad``, so a step runs B3 twice and B4 once.
+:func:`sarm_loss_and_grads` gives the loss and gradients on their own.
+
 Batches are dicts of arrays: ``state`` (B, T) int, ``action`` (B,) int,
 ``true_len`` (B,) int and ``valid`` (B,) bool, the mask of a padded tail
-batch; the double-Q steps also read ``reward`` (B,) float, ``next_state``
-(B, T), ``true_next_len`` (B,) and ``is_end`` (B,) bool. Every mean is a
-masked mean. The steps return their metrics as device tensors and never
+batch; the double-Q and sarm steps also read ``reward`` (B,) float,
+``next_state`` (B, T), ``true_next_len`` (B,) and ``is_end`` (B,) bool.
+Every mean is a masked mean. The steps return their metrics as device tensors and never
 wait on the device themselves.
 """
 
@@ -60,7 +74,7 @@ from ikea_recommender_tpu_torch.ops.fused_argmax import (
     row_logit,
 )
 from ikea_recommender_tpu_torch.ops.fused_ce import fused_softmax_ce, fused_softmax_ce_topk
-from ikea_recommender_tpu_torch.ops.fused_topk import topk_lowest_id
+from ikea_recommender_tpu_torch.ops.fused_topk import blockwise_multihead_max, topk_lowest_id
 from ikea_recommender_tpu_torch.ops.rewards import diversity_from_topk, novelty_from_topk
 from ikea_recommender_tpu_torch.ops.rl import (
     gather_from_3d,
@@ -70,13 +84,10 @@ from ikea_recommender_tpu_torch.ops.rl import (
 )
 from ikea_recommender_tpu_torch.train.state import Adam, DoubleQState, TrainState
 
-_LATER = {"sarm": "the bidir_gru4rec and sarm training slice (ROADMAP A.7)"}
-
-
 @dataclass(frozen=True)
 class RLStepConfig:
-    """The RL hyperparameters of the double-Q steps (the reference's;
-    its ``sarm_gamma`` comes with the sarm step, ROADMAP A.7)."""
+    """The RL hyperparameters of the double-Q and sarm steps (the
+    reference's)."""
 
     gamma: float = 0.5
     alpha: float = 1.0
@@ -87,6 +98,7 @@ class RLStepConfig:
     padding_pos: str = "end"
     compat_boot_len_bug: bool = False  # quirk 2: bootstrap forward reads true_len
     compat_div_len_bug: bool = False  # quirk 3: diversity reads true_next_len
+    sarm_gamma: float = 0.99  # hard-coded in the original (sarm.py:112)
     # One Adam over both nets instead of one per net: the reference's
     # 1-vs-2-optimizer ablation axis.
     single_optimizer: bool = False
@@ -323,6 +335,71 @@ def double_q_train_step(
     return state, metrics
 
 
+def _sarm_loss(params, batch, cfg: ModelConfig, rl: RLStepConfig):
+    """(total, sup_loss, q_loss) of the sarm step: the CE on head 0 plus
+    the mean over the heads of each head's masked-mean TD loss."""
+    not_end = 1.0 - batch["is_end"].to(torch.float32)
+    if cfg.fused_ce:
+        h = apply_features(params, cfg, batch["state"], batch["true_len"])
+        qh = params["q_heads"]
+        per = fused_softmax_ce(
+            h.to(torch.float32), qh["kernel"][0], qh["bias"][0], batch["action"],
+            cfg.action_dim, cfg.head_precision,
+        )
+        sup_loss = _masked_mean(per, batch["valid"])
+        q = multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"])  # (B, 5)
+        with torch.no_grad():
+            h_next = apply_features(params, cfg, batch["next_state"], batch["true_next_len"])
+            q_next = blockwise_multihead_max(
+                h_next, qh["kernel"], qh["bias"], cfg.action_dim, precision=cfg.head_precision
+            )  # (B, 5)
+    else:
+        outs = apply_model(params, cfg, batch["state"], batch["true_len"])
+        sup_loss = _ce_loss(outs[0], batch["action"], batch["valid"])
+        q = gather_from_3d(torch.stack(outs, dim=1), batch["action"])  # (B, 5)
+        with torch.no_grad():
+            outs_next = apply_model(params, cfg, batch["next_state"], batch["true_next_len"])
+            q_next = torch.stack(outs_next, dim=1).amax(dim=2)  # (B, 5)
+    # each head bootstraps from its own max, zero at episode ends
+    q_next = q_next * not_end[:, None]
+    td = (batch["reward"][:, None] + rl.sarm_gamma * q_next - q) ** 2
+    valid = batch["valid"]
+    n = torch.clamp(valid.sum(), min=1)
+    q_loss = torch.mean((td * valid[:, None].to(td.dtype)).sum(dim=0) / n)
+    return sup_loss + q_loss, sup_loss, q_loss
+
+
+def sarm_loss_and_grads(
+    params: Dict, batch: Dict[str, torch.Tensor], model_cfg: ModelConfig, rl: RLStepConfig
+) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """(metrics, grads) of the sarm step at ``params``: ``sup_loss`` and
+    ``q_loss``, and the gradients with the pad row's masked. Head 0 takes
+    the CE's gradient (B2 on the card) and its Q gather's in one leaf."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        total, sup_loss, q_loss = _sarm_loss(leaves, batch, model_cfg, rl)
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(total, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach()}
+    return metrics, _apply_grad_mask(tree_unflatten(leaves, grads), model_cfg)
+
+
+def sarm_train_step(
+    state: TrainState,
+    batch: Dict[str, torch.Tensor],
+    model_cfg: ModelConfig,
+    opt: Adam,
+    rl: RLStepConfig,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One sarm step. Moves ``state``'s params and moments in place and
+    returns it with the step advanced, and the metrics."""
+    metrics, grads = sarm_loss_and_grads(state.params, batch, model_cfg, rl)
+    opt.update(grads, state.opt_state, state.params)
+    state.step += 1
+    return state, metrics
+
+
 class TrainStep:
     """``step(state, batch) -> (state, metrics)`` on one device. The
     batch's arrays (numpy or tensors) are copied to the device; the state
@@ -357,18 +434,16 @@ def make_train_step(
 ) -> TrainStep:
     """Build ``step(state, batch) -> (state, metrics)`` for the family on
     ``device`` (raises without CUDA unless ``device="cpu"``): the CE step of
-    gru4rec and bidir_gru4rec on a :class:`TrainState`, the double-Q step of
-    sqn and smorl on a :class:`DoubleQState`. ``rl`` defaults to
+    gru4rec and bidir_gru4rec and the sarm step on a :class:`TrainState`,
+    the double-Q step of sqn and smorl on a :class:`DoubleQState`. ``rl`` defaults to
     ``RLStepConfig()``. smorl needs ``div_embedding`` (V_in, E), the frozen
     embedding of the diversity reward, and ``unpopular_mask`` (A,) bool;
     ``out_to_in`` (A,) maps output ids to input ids for the diversity reward.
-    They are arrays or tensors and are copied to the device once. sarm, the
-    lazy optimizers and ``mesh`` raise, naming their ROADMAP item."""
+    They are arrays or tensors and are copied to the device once. The lazy
+    optimizers and ``mesh`` raise, naming their ROADMAP item."""
     dev = resolve_device(device)
     fam = model_cfg.family
     rl = RLStepConfig() if rl is None else rl
-    if fam in _LATER:
-        raise NotImplementedError(f"the {fam} train step comes with {_LATER[fam]}")
     if lazy_embedding_lr is not None or lazy_qhead_lr is not None:
         raise NotImplementedError(
             "lazy optimizers come with the presets and lazy-optimizers slice (ROADMAP A.8)"
@@ -377,6 +452,10 @@ def make_train_step(
         raise NotImplementedError("a mesh comes with the multi-GPU slice (ROADMAP A.9)")
     if fam in ("gru4rec", "bidir_gru4rec"):
         return TrainStep(lambda state, batch: ce_train_step(state, batch, model_cfg, opt), dev)
+    if fam == "sarm":
+        return TrainStep(
+            lambda state, batch: sarm_train_step(state, batch, model_cfg, opt, rl), dev
+        )
     aux: Dict = {}
     if fam == "smorl":
         if div_embedding is None or unpopular_mask is None:

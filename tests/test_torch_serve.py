@@ -22,9 +22,9 @@ from ikea_recommender_tpu.run import checkpoints as jax_checkpoints
 from ikea_recommender_tpu.run.serve import Recommender as JaxRecommender
 from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
 from ikea_recommender_tpu_torch.core import config
-from ikea_recommender_tpu_torch.data import tokenizer
+from ikea_recommender_tpu_torch.data import synthetic, tokenizer
 from ikea_recommender_tpu_torch.models import families
-from ikea_recommender_tpu_torch.run import checkpoints, recommend
+from ikea_recommender_tpu_torch.run import checkpoints, recommend, trainer
 from ikea_recommender_tpu_torch.run.serve import Recommender
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,6 +58,10 @@ def _sessions(B, A, T, seed):
         ("gru4rec", 50, 8, 5, 16, 0, True),
         ("sqn", 50, 8, 5, 16, 1, None),
         ("sqn", 50, 8, 5, 16, 1, True),
+        ("sarm", 50, 8, 5, 16, 0, None),  # head 0, the CE head
+        ("sarm", 50, 8, 5, 16, 0, True),
+        ("sarm", 50, 8, 5, 16, 3, None),
+        ("sarm", 50, 8, 5, 16, 3, True),
     ],
 )
 def test_recommend_matches_reference(model, A, E, T, B, head_idx, fused):
@@ -139,6 +143,47 @@ def test_cli_matches_reference(tmp_path, padding_position, tokenized):
     assert_topk_match(
         [r["scores"] for r in got], ids(got), [r["scores"] for r in want], ids(want), k
     )
+
+
+def test_trained_sarm_model_serves(tmp_path):
+    """A sarm model trained by the port's trainer (one epoch, scored by head
+    3) ships a ``best_model.npz`` that the port's and the reference's batch
+    CLIs both load from the same YAML and answer alike, and whose top-1 is
+    the argmax of head 3's full scores."""
+    A, E, T, k = 50, 8, 5, 5
+    yaml = (f"data:\n  num_items: {A}\n"
+            f"train:\n  model: sarm\n  embedding_size: {E}\n  hidden_state_size: {E}\n"
+            f"  state_size: {T}\n  head_idx: 3\n  batch_size: 32\n  epochs: 1\n"
+            f"  learning_rate: 0.01\n  eval_at: [1.0]\n")
+    exp = tmp_path / "exp"
+    exp.mkdir()
+    (exp / "experiment.yaml").write_text(yaml)
+    cfg = config.load_experiment_config(str(exp / "experiment.yaml"))
+    assert cfg.exp_dir == str(exp)
+    train_buf, val_buf = synthetic.synthetic_buffers(num_sessions=60, num_items=A, state_len=T,
+                                                     seed=1)
+    out = trainer.train(cfg, train_buf=train_buf, val_buf=val_buf, device="cpu")
+    assert out.best_epoch == 0 and (exp / "best_model.npz").exists()
+
+    rs = np.random.RandomState(2)
+    rows = [{"state": rs.randint(0, A, rs.randint(0, 2 * T)).tolist()} for _ in range(20)]
+    inp = tmp_path / "sessions.jsonl"
+    inp.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    args = ["-f", str(exp / "experiment.yaml"), "--input", str(inp), "--k", str(k + 1)]
+    _load_reference_cli().main(args + ["--output", str(tmp_path / "want.jsonl")])
+    recommend.main(args + ["--output", str(tmp_path / "got.jsonl"), "--device", "cpu"])
+    got, want = ([json.loads(line) for line in (tmp_path / name).read_text().splitlines()]
+                 for name in ("got.jsonl", "want.jsonl"))
+    assert len(got) == len(want) == len(rows)
+    assert_topk_match([r["scores"] for r in got], [r["predictions"] for r in got],
+                      [r["scores"] for r in want], [r["predictions"] for r in want], k)
+
+    mc = families.model_config_from_train(cfg.train, cfg.data)
+    rec = Recommender(checkpoints.load_params_npz(str(exp / "best_model.npz"), device="cpu"),
+                      mc, head_idx=3, device="cpu")
+    states, lens = recommend.pad_batch(rows, T, A, cfg.train.padding_position)
+    np.testing.assert_array_equal([r["predictions"][0] for r in got],
+                                  rec.scores(states, lens).argmax(1).numpy())
 
 
 def test_npz_roundtrip_with_reference(tmp_path):

@@ -263,15 +263,6 @@ def test_backbone_dropout_in_training_only():
     assert torch.equal(train, again)
 
 
-@pytest.mark.parametrize("model", ["sarm"])
-def test_other_families_name_their_slice(model):
-    mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model=model)
-    params = params_from_numpy(numpy_init_params(mc, seed=0), "cpu")
-    _, opt = make_train_state(params, mc, LR, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        make_train_step(mc, opt, device="cpu")
-
-
 def test_train_state_holds_params_to_the_config():
     mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="gru4rec")
     wider, _ = _configs(A_SMALL + 1, embedding_size=8, hidden_state_size=8, model="gru4rec")

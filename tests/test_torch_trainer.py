@@ -173,9 +173,10 @@ def _assert_dict_close(got, want, windows, proto, what):
             assert abs(g - w) <= lim, (what, key, g, w, windows[kind])
 
 
-def _run_both(monkeypatch, tmp_path, model, epochs, fused=False, train_metrics=True):
-    jcfg = _cfg(jax_config, tmp_path / "jax", model, epochs, fused, train_metrics)
-    pcfg = _cfg(port_config, tmp_path / "port", model, epochs, fused, train_metrics)
+def _run_both(monkeypatch, tmp_path, model, epochs, fused=False, train_metrics=True,
+              **train_kw):
+    jcfg = _cfg(jax_config, tmp_path / "jax", model, epochs, fused, train_metrics, **train_kw)
+    pcfg = _cfg(port_config, tmp_path / "port", model, epochs, fused, train_metrics, **train_kw)
     extra = _smorl_inputs() if model == "smorl" else {}
     jtrain, jval = _buffers(jax_synth)
     want = jax_trainer.train(jcfg, train_buf=jtrain, val_buf=jval, **extra)
@@ -348,6 +349,20 @@ def test_double_q_train_matches_reference(monkeypatch, tmp_path, model):
         assert got.logs[-1]["Val_Div_Reward"] > 0
 
 
+@pytest.mark.parametrize("fused,gamma", [(False, 0.99), (True, 0.99), (True, 0.5)],
+                         ids=["dense", "fused", "fused-gamma-0.5"])
+def test_sarm_train_matches_reference(monkeypatch, tmp_path, fused, gamma):
+    """sarm (one net of five Q heads, scored by head 0) for one epoch; the
+    config's ``sarm_gamma`` must reach the step."""
+    want, got, proto = _run_both(monkeypatch, tmp_path, "sarm", 1, fused, sarm_gamma=gamma)
+    _assert_runs_match(want, got, proto, 1)
+    for log in got.logs:
+        assert "Q-Modification-Signal" in log and not any(k.startswith("Sec_") for k in log)
+        assert all(np.isfinite(v) for v in log.values())
+    meta = json.loads((tmp_path / "port" / "best_model.json").read_text())
+    assert meta["model_idx"] == 1
+
+
 # -- 4. resume --------------------------------------------------------------------
 
 
@@ -448,10 +463,12 @@ def _yaml(tmp_path):
 
 
 GUARDS = {
-    "sarm": (dict(model="sarm"), "A.7"),
     "lazy_adam": (dict(optimizer="lazy_adam"), "A.8"),
     "qhead_lazy_adam": (dict(model="sqn", qhead_optimizer="lazy_adam"), "A.8"),
     "preset_fast_sqn": (dict(model="sqn", preset="fast"), "A.8"),
+    # on the fused path, where the reference runs its lazy Q-head Adam
+    "preset_fast_sarm": (dict(model="sarm", preset="fast", fused=True), "A.8"),
+    "qhead_lazy_sarm": (dict(model="sarm", qhead_optimizer="lazy_adam", fused=True), "A.8"),
 }
 
 
