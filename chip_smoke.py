@@ -27,8 +27,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    wherever the twin's two best differ by more; also "default",
    "highest", NaN in a padded catalog, one row, and exact ties on both
    sides of a tile edge and at the last valid column, which the lowest id
-   must win); every kernel launched twice on each input must agree bit
-   for bit;
+   must win; and the same cases, F = 90 too, on the lazy optimizers'
+   action-major W, launched and counted as the action-major form); every
+   kernel launched twice on each input must agree bit for bit;
 4. serving: gru4rec at the RetailRocket width (catalog 70852, E=H=64,
    T=10, one layer; random weights from a seed) answers 4 batches of 512
    seeded sessions through ``run.recommend.recommend_rows``. The launch
@@ -66,6 +67,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    timed ("[train] sarm target max": CUDA graph, eager, launches, bound,
    the dense form's time); then 1 warm-up and 20 timed steps whose
    counters must show per step B1, B2 and B4 once, B3 twice, no B5 or B6;
+7b. train sqn, smorl and sarm fast: the steps as ``preset: fast``
+   resolves them (``TrainConfig(preset="fast")``: "default", bf16 Adam
+   moments, lazy action-major Q-head Adam; ``train/lazy_adam.py``) at the
+   same width: 3 steps (coins (0, 1, 1)) held to CPU copies as phases 6
+   and 7 hold theirs, the moments in their bf16 storage to one bf16 step
+   per update of the net (or 1e-4 of the leaf's largest), the params over
+   the entries whose stored moments agreed to lr / 1000, then 20
+   timed steps whose counters must show per step B1, B2, B4 and the
+   action-major B5 once and B3 three times (sqn), B2, B4 and the
+   action-major B6 once and B3 three times (smorl), or B1, B2, B4 once and
+   B3 twice (sarm), and no canonical B5 or B6;
 8. train bidir_gru4rec: the CE step at the width of
    ``experiments/Ablations/BidirGRU-128/BidirGRU-128.yaml`` (E 64, H 128, so
    the head input is F = 256; lr 0.0005, dropout 0.35 on the head input),
@@ -108,7 +120,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    first epoch must equal the 1-epoch run's logs bit for bit, and a run
    resumed from that run's checkpoint must give its second epoch, best
    point and test metrics bit for bit. gru4rec runs 1 epoch with train
-   metrics off. "[trainer]" lines give sessions/s of the train loop and
+   metrics off. sqn, smorl and sarm then run 1 epoch each from YAMLs that
+   set ``preset: fast`` (their ``best_model.npz`` in the lazy layout,
+   launches ``PER_STEP``'s fast rows per step plus B3 per eval batch);
+   fast sqn twice and resumed, bit for bit, and its best model serves 512
+   val sessions through ``run.recommend.main``, top-1 its head's argmax.
+   "[trainer]" lines give sessions/s of the train loop and
    the four ``timing`` shares; with ``--profile`` one more gru4rec epoch
    is traced over its first span (``profile_dir``), and "[profile]
    trainer" gives its busy time, idle share and largest kernels.
@@ -288,7 +305,9 @@ def counters():
     return {"B1 fused_ce_fwd": fused_ce.LAUNCHES, "B2 fused_ce_bwd": fused_ce.BWD_LAUNCHES,
             "B3 gru_fwd": gru_cuda.LAUNCHES, "B4 gru_bwd": gru_cuda.BWD_LAUNCHES,
             "B5 fused_argmax": fused_argmax.LAUNCHES,
-            "B6 fused_wargmax": fused_argmax.WEIGHTED_LAUNCHES}
+            "B6 fused_wargmax": fused_argmax.WEIGHTED_LAUNCHES,
+            "B5 fused_argmax am": fused_argmax.AM_LAUNCHES,
+            "B6 fused_wargmax am": fused_argmax.WEIGHTED_AM_LAUNCHES}
 
 
 def reset_counters():
@@ -297,6 +316,7 @@ def reset_counters():
     fused_ce.LAUNCHES = fused_ce.BWD_LAUNCHES = 0
     gru_cuda.LAUNCHES = gru_cuda.BWD_LAUNCHES = 0
     fused_argmax.LAUNCHES = fused_argmax.WEIGHTED_LAUNCHES = 0
+    fused_argmax.AM_LAUNCHES = fused_argmax.WEIGHTED_AM_LAUNCHES = 0
 
 
 def phase_device():
@@ -549,6 +569,8 @@ def kernels_fused_ce():
                 row["library_call_ms"] = lib_call
             print(f"[kernels] {name} {json.dumps(row)}")
             rows.setdefault({64: name, 256: f"{name} bidir"}.get(Fd, f"{name} F={Fd}"), row)
+            if Fd == 64 and A == valid and precision != "high":
+                rows.setdefault(f"{name} {precision}", row)
     return rows
 
 
@@ -578,84 +600,139 @@ def argmax_case(B, F, A, valid, K, integer, seed):
     return (h, w[0], b[0], None) if K is None else (h, w, b, q)
 
 
+# The cases of B5 and B6: (B, F, A, valid, K (None: B5), precision, ties).
+# The canonical forms' train points are "high" (the dense arm's); the
+# action-major forms' are "default" (the fast preset's); F = 90 makes the
+# action-major staging take 4-byte copies.
+ARGMAX_CASES = [
+    (256, 64, 70852, 70852, None, "high", False),  # the sqn point
+    (256, 64, 70852, 70852, 3, "high", False),  # the smorl point
+    (256, 64, 70852, 70852, None, "default", False),
+    (256, 64, 70852, 70852, 3, "default", False),
+    (256, 64, 70852, 70852, None, "highest", False),
+    (256, 64, 70852, 70852, 3, "highest", False),
+    (256, 64, 70912, 70852, None, "high", False),  # NaN in the pad
+    (256, 64, 70912, 70852, 3, "high", False),
+    (256, 64, 70912, 70852, None, "high", True),  # forced ties
+    (256, 64, 70912, 70852, 3, "high", True),
+    (1, 64, 70852, 70852, None, "high", False),  # one row
+    (1, 64, 70852, 70852, 3, "high", False),
+]
+ARGMAX_AM_CASES = [
+    (256, 64, 70852, 70852, None, "default", False),  # the sqn fast point
+    (256, 64, 70852, 70852, 3, "default", False),  # the smorl fast point
+    (256, 64, 70852, 70852, None, "high", False),
+    (256, 64, 70852, 70852, 3, "high", False),
+    (256, 64, 70852, 70852, None, "highest", False),
+    (256, 64, 70852, 70852, 3, "highest", False),
+    (256, 64, 70912, 70852, None, "default", False),  # NaN in the pad
+    (256, 64, 70912, 70852, 3, "default", False),
+    (256, 64, 70912, 70852, None, "default", True),  # forced ties
+    (256, 64, 70912, 70852, 3, "default", True),
+    (256, 64, 70912, 70852, 3, "highest", True),
+    (256, 90, 70852, 70852, None, "default", False),  # 4-byte copies
+    (256, 90, 70852, 70852, 3, "high", False),
+    (1, 64, 70852, 70852, 3, "default", False),  # one row
+]
+
+
 def kernels_fused_argmax():
-    """B5 fused_argmax and B6 fused_wargmax against their twins: the max
-    within KERNEL_TOL of the twin's largest |max|, ids equal wherever the
-    twin's top two values differ by more (the rest counted); on the
-    integer cases the ids equal everywhere, ties to the lowest id. Returns
-    the train points' rows (sqn's B5, smorl's B6 at K = 3, "high")."""
+    """B5 fused_argmax and B6 fused_wargmax against their twins, on the
+    canonical W and (``action_major``) on the lazy optimizers' (A, K F) W:
+    the max within KERNEL_TOL of the twin's largest |max|, ids equal
+    wherever the twin's top two values differ by more (the rest counted);
+    on the integer cases the ids equal everywhere, ties to the lowest id.
+    Returns the train points' rows (sqn's B5, smorl's B6 at K = 3: "high",
+    "highest", and the action-major forms as "<name> am" in "default")."""
+    rows = {}
+    for am, cases in ((False, ARGMAX_CASES), (True, ARGMAX_AM_CASES)):
+        for case in cases:
+            name, row = argmax_row(*case, am)
+            key = f"{name} am" if am else name
+            rows.setdefault(key, row)
+            if case[:4] == (256, 64, 70852, 70852) and case[5] == "highest":
+                rows.setdefault(f"{key} highest", row)
+    return rows
+
+
+def argmax_row(B, Fd, A, valid, K, precision, integer, am):
+    """One case of B5 or B6 against its twin: (name, row)."""
+    from ikea_recommender_tpu_torch.ops import fused_argmax
     from ikea_recommender_tpu_torch.ops.fused_argmax import (
         fused_linear_argmax,
         fused_weighted_multihead_argmax,
         head_values_plain,
     )
 
-    rows = {}
-    for name, B, Fd, A, valid, K, precision, integer in [
-        ("B5 fused_argmax", 256, 64, 70852, 70852, None, "high", False),  # the sqn point
-        ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "high", False),  # the smorl point
-        ("B5 fused_argmax", 256, 64, 70852, 70852, None, "default", False),
-        ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "default", False),
-        ("B5 fused_argmax", 256, 64, 70852, 70852, None, "highest", False),
-        ("B6 fused_wargmax", 256, 64, 70852, 70852, 3, "highest", False),
-        ("B5 fused_argmax", 256, 64, 70912, 70852, None, "high", False),  # NaN in the pad
-        ("B6 fused_wargmax", 256, 64, 70912, 70852, 3, "high", False),
-        ("B5 fused_argmax", 256, 64, 70912, 70852, None, "high", True),  # forced ties
-        ("B6 fused_wargmax", 256, 64, 70912, 70852, 3, "high", True),
-        ("B5 fused_argmax", 1, 64, 70852, 70852, None, "high", False),  # one row
-        ("B6 fused_wargmax", 1, 64, 70852, 70852, 3, "high", False),
-    ]:
-        h, w, b, q = argmax_case(B, Fd, A, valid, K, integer, seed=B + A + (K or 1))
-        shape = dict(B=B, F=Fd, A=A, valid=valid, K=K or 1, precision=precision,
-                     ties=integer)
+    name = "B5 fused_argmax" if K is None else "B6 fused_wargmax"
+    h, w, b, q = argmax_case(B, Fd, A, valid, K, integer, seed=B + A + (K or 1))
+    if am:  # the same values, action-major: (A, F) or (A, K F)
+        w = w.reshape(-1, A).T.contiguous()
+    shape = dict(B=B, F=Fd, A=A, valid=valid, K=K or 1, precision=precision,
+                 ties=integer, action_major=am)
 
-        def kernel():
-            if q is None:
-                return fused_linear_argmax(h, w, b, valid, precision, with_max=True)
-            return fused_weighted_multihead_argmax(h, w, b, q, valid, precision, with_max=True)
+    def kernel():
+        if q is None:
+            return fused_linear_argmax(h, w, b, valid, precision, with_max=True,
+                                       action_major=am)
+        return fused_weighted_multihead_argmax(h, w, b, q, valid, precision, with_max=True,
+                                               action_major=am)
 
-        def plain():
-            v = head_values_plain(h, w, b, valid, precision, q)
-            return v.argmax(dim=1), v.amax(dim=1)
+    def plain():
+        v = head_values_plain(h, w, b, valid, precision, q, am)
+        return v.argmax(dim=1), v.amax(dim=1)
 
-        idx, mx = kernel()
-        again = kernel()
-        torch.cuda.synchronize()
-        if not (torch.equal(idx, again[0]) and torch.equal(mx, again[1])):
-            fail(f"{name} at {shape}: two launches differ")
-        v = head_values_plain(h, w, b, valid, precision, q)
-        idx_p, mx_p = v.argmax(dim=1), v.amax(dim=1)
-        top2 = v.topk(2, dim=1).values
-        scale = mx_p.abs().max().item()
-        clear = (top2[:, 0] - top2[:, 1]) > KERNEL_TOL * scale
-        err = (mx - mx_p).abs().max().item()
-        if not (torch.isfinite(mx).all() and (idx < valid).all()):
-            fail(f"{name} at {shape}: non-finite max or an id past valid_dim")
-        if err > KERNEL_TOL * scale:
-            fail(f"{name} at {shape}: max differs from the twin by {err:.3g}")
-        if integer and not (torch.equal(idx, idx_p) and (idx == 127).all()):
-            fail(f"{name} at {shape}: exact ties not broken to the lowest id 127")
-        if (idx != idx_p)[clear].any():
-            fail(f"{name} at {shape}: ids differ from the twin at separated rows")
-        excluded = int((~clear).sum())
-        if not integer and excluded > max(2, B // 50):
-            fail(f"{name} at {shape}: {excluded} rows with near-tied maxima")
+    counter = ("WEIGHTED_" if K else "") + ("AM_LAUNCHES" if am else "LAUNCHES")
+    before = getattr(fused_argmax, counter)
+    idx, mx = kernel()
+    if getattr(fused_argmax, counter) != before + 1:
+        fail(f"{name} at {shape}: the launch was not counted under {counter}")
+    again = kernel()
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, again[0]) and torch.equal(mx, again[1])):
+        fail(f"{name} at {shape}: two launches differ")
+    v = head_values_plain(h, w, b, valid, precision, q, am)
+    idx_p, mx_p = v.argmax(dim=1), v.amax(dim=1)
+    top2 = v.topk(2, dim=1).values
+    scale = mx_p.abs().max().item()
+    clear = (top2[:, 0] - top2[:, 1]) > KERNEL_TOL * scale
+    err = (mx - mx_p).abs().max().item()
+    if not (torch.isfinite(mx).all() and (idx < valid).all()):
+        fail(f"{name} at {shape}: non-finite max or an id past valid_dim")
+    if err > KERNEL_TOL * scale:
+        fail(f"{name} at {shape}: max differs from the twin by {err:.3g}")
+    if integer and not (torch.equal(idx, idx_p) and (idx == 127).all()):
+        fail(f"{name} at {shape}: exact ties not broken to the lowest id 127")
+    if (idx != idx_p)[clear].any():
+        fail(f"{name} at {shape}: ids differ from the twin at separated rows")
+    excluded = int((~clear).sum())
+    if not integer and excluded > max(2, B // 50):
+        fail(f"{name} at {shape}: {excluded} rows with near-tied maxima")
 
+    bv = b[..., :valid].contiguous()
+    heads = K or 1
+    if am:  # one fp32 cuBLAS product on the (valid K, F) rows, as they lie
+        wv = w[:valid].contiguous().view(valid * heads, Fd)
+        if q is None:
+            library_ms = graph_ms(lambda: torch.argmax(torch.addmm(bv, h, wv.T), 1), 20)
+        else:
+            bk = bv.T.reshape(-1)  # (valid K,) in the rows' (action, head) order
+            library_ms = graph_ms(lambda: torch.argmax(
+                (torch.addmm(bk, h, wv.T).view(B, valid, heads) * q).sum(2), 1), 20)
+    else:
         wv = w[..., :valid].contiguous()
-        bv = b[..., :valid].contiguous()
         if q is None:
             library_ms = graph_ms(lambda: torch.argmax(torch.addmm(bv, h, wv), 1), 20)
         else:
             library_ms = graph_ms(lambda: torch.argmax(torch.einsum(
                 "kba,k->ba", torch.matmul(h, wv) + bv[:, None, :], q), 1), 20)
-        bound_ms, bound_by = argmax_bound(B, Fd, A, valid, K or 1, precision)
-        row = dict(shape, max_abs_err=err, rel_err=err / scale, excluded_rows=excluded,
-                   ms=graph_ms(kernel, 20), call_ms=eager_ms(kernel, 20),
-                   plain_ms=graph_ms(plain, 3), library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
-        print(f"[kernels] {name} {json.dumps(row)}")
-        rows.setdefault(name, row)
-    return rows
+    bound_ms, bound_by = argmax_bound(B, Fd, A, valid, heads, precision)
+    row = dict(shape, max_abs_err=err, rel_err=err / scale, excluded_rows=excluded,
+               ms=graph_ms(kernel, 20), call_ms=eager_ms(kernel, 20),
+               plain_ms=graph_ms(plain, 3), library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    print(f"[kernels] {name}{' am' if am else ''} {json.dumps(row)}")
+    return name, row
 
 
 def phase_kernels():
@@ -1002,6 +1079,12 @@ PER_STEP = {
             "B5 fused_argmax": 1},
     "smorl": {"B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1, "B6 fused_wargmax": 1},
     "sarm": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 2, "B4 gru_bwd": 1},
+    # preset: fast, whose lazy Q heads are action-major
+    "sqn fast": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1,
+                 "B5 fused_argmax am": 1},
+    "smorl fast": {"B2 fused_ce_bwd": 1, "B3 gru_fwd": 3, "B4 gru_bwd": 1,
+                   "B6 fused_wargmax am": 1},
+    "sarm fast": {"B1 fused_ce_fwd": 1, "B2 fused_ce_bwd": 1, "B3 gru_fwd": 2, "B4 gru_bwd": 1},
 }
 
 
@@ -1011,9 +1094,9 @@ def check_launches(family, launches, n_steps):
         fail(f"{n_steps} {family} train steps launched {launches}, expected {want}")
 
 
-def step_ms_line(family, A, E, H, T, B, step_ms, launches, last_loss):
+def step_ms_line(family, A, E, H, T, B, step_ms, launches, last_loss, precision="high"):
     ms = float(np.median(step_ms))
-    print(f"[train] {family} A={A} E={E} H={H} T={T} B={B} high: {len(step_ms)} steps, "
+    print(f"[train] {family} A={A} E={E} H={H} T={T} B={B} {precision}: {len(step_ms)} steps, "
           f"ms per step median {ms:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}, "
           f"p90 {float(np.percentile(step_ms, 90)):.3f}) = {B / ms * 1e3:.0f} sessions/s; "
           f"launches {launches}; last loss {last_loss}")
@@ -1336,6 +1419,269 @@ def phase_sarm(profile=False):
     if not torch.isfinite(torch.stack(metrics)).all():
         fail("non-finite sarm train loss")
     step_ms_line("sarm", A, E, E, T, B, step_ms, launches, f"{metrics[-1].item():.5f}")
+    if profile:
+        profile_train(step, state, batches[-1])
+    return launches
+
+
+def bf16_steps(got, want):
+    """|got - want| in bf16 steps of the larger of the two, for moments
+    stored in bf16 (0 where both are 0)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    return (g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)
+
+
+def lazy_moments(opt_state, family, K):
+    """{param name: (m, v)} of one net's lazy optimizer state, as fp32 on
+    the host: dense Adam's leaves (``rest/...`` under their param names,
+    sarm's ``h0`` as ``q_heads/kernel0``, ``bias0``) and the action-major
+    heads' packed rows, unpacked into ``kernel_am`` and the bias."""
+    out = {}
+    for kind in ("mu", "nu"):
+        for name, t in named_leaves(getattr(opt_state.rest, kind)).items():
+            name = name[5:] if name.startswith("rest/") else "q_heads/" + name[3:] + "0"
+            out.setdefault(name, []).append(t)
+    key, bname = ("q_head", "bias") if family == "sqn" else (
+        "q_heads", "bias_rest" if family == "sarm" else "bias")
+    mv = opt_state.qh.mv.float().cpu()
+    A = mv.shape[0]
+    for half in mv.chunk(2, dim=1):
+        p = half.reshape(A, K, -1)
+        bias = p[:, :, -1].T
+        out.setdefault(f"{key}/kernel_am", []).append(p[:, :, :-1].reshape(A, -1))
+        out.setdefault(f"{key}/{bname}", []).append(bias[0] if family == "sqn" else bias)
+    return out
+
+
+def lazy_param_grads(grads, pieces, params, family, K):
+    """One net's lazy step gradients in the params' layout (host fp32): the
+    dense part's leaves, and the sorted rows' scattered to their actions
+    (for the host's comparison masks only)."""
+    out = {}
+    for name, t in named_leaves(grads["dense"]).items():
+        out[name[5:] if name.startswith("rest/") else "q_heads/" + name[3:] + "0"] = t
+    key, bname = ("q_head", "bias") if family == "sqn" else (
+        "q_heads", "bias_rest" if family == "sarm" else "bias")
+    sids = pieces["sids"].cpu()
+    kam = params[key]["kernel_am"]
+    g_w = grads["w_rows"].float().cpu().reshape(sids.shape[0], -1)
+    out[f"{key}/kernel_am"] = torch.zeros(kam.shape).index_add_(0, sids, g_w)
+    g_b = torch.zeros(K, kam.shape[0]).index_add_(1, sids, grads["b_cols"].float().cpu())
+    out[f"{key}/{bname}"] = g_b[0] if family == "sqn" else g_b
+    return out
+
+
+def phase_fast(family, profile=False):
+    """sqn, smorl or sarm as ``preset: fast`` resolves them at full width:
+    the fused path in "default", bf16 Adam moments and lazy action-major Q
+    heads (B5 or B6 in their action-major form; sarm's heads 1-4 as rows,
+    its target max ``blockwise_multihead_max_am``). 3 steps (coins (0, 1,
+    1)) against CPU copies, then 1 warm-up and 20 timed steps. Returns the
+    timed run's launches."""
+    from ikea_recommender_tpu_torch.convert import (
+        numpy_init_double_q,
+        numpy_init_params,
+        params_from_numpy,
+        tree_leaves,
+    )
+    from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
+    from ikea_recommender_tpu_torch.models.families import apply_features, model_config_from_train
+    from ikea_recommender_tpu_torch.ops.fused_argmax import head_values_plain
+    from ikea_recommender_tpu_torch.train.state import (
+        QH_KEY,
+        make_lazy_double_q_state,
+        make_lazy_sarm_state,
+    )
+    from ikea_recommender_tpu_torch.train.steps import (
+        LazyCfg,
+        RLStepConfig,
+        lazy_apply_updates,
+        lazy_loss_and_grads,
+        make_train_step,
+    )
+
+    A, E, T, B, LR, N_TIMED = 70852, 64, 10, 256, 0.01, 20
+    double_q = family != "sarm"
+    COINS = (0, 1, 1) if double_q else (0, 0, 0)
+    tc = TrainConfig(model=family, batch_size=B, embedding_size=E, hidden_state_size=E,
+                     state_size=T, learning_rate=LR, fused_ce=True, preset="fast")
+    mc = model_config_from_train(tc, DataConfig(num_items=A))
+    if not (mc.fused_ce and mc.head_precision == "default" and tc.qhead_optimizer == "lazy_adam"
+            and tc.optimizer_mv_dtype == "bfloat16"):
+        fail(f"preset fast must train {family} through the fused path in 'default' with bf16 "
+             "moments and lazy Q heads")
+    rl, lazy = RLStepConfig(), LazyCfg(qh_lr=LR)
+    K = {"sqn": 1, "smorl": mc.num_q_heads, "sarm": mc.num_q_heads - 1}[family]
+    key = QH_KEY[family]
+    rs = np.random.RandomState(0)
+    aux = {}
+    if family == "smorl":  # as bench.py:94-100 draws them, before the batches
+        aux = {"div_embedding": rs.randn(A + 1, E).astype(np.float32),
+               "unpopular_mask": np.arange(A) % 10 == 0}
+    batches = [bench_batch(rs, B, A, T) for _ in range(len(COINS) + 1 + N_TIMED)]
+    batches[len(COINS) - 1]["valid"][200:] = False  # a tail batch of 200 sessions
+
+    states, steps, opts = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        if double_q:
+            pair = [params_from_numpy(p, dev) for p in numpy_init_double_q(mc, (0, 1))]
+            states[dev], opts[dev] = make_lazy_double_q_state(
+                pair, mc, LR, tc.optimizer_mv_dtype, lazy_qh=True, device=dev)
+        else:
+            states[dev], opts[dev] = make_lazy_sarm_state(
+                params_from_numpy(numpy_init_params(mc, 0), dev), mc, LR, tc.optimizer_mv_dtype,
+                lazy_qh=True, device=dev)
+        steps[dev] = make_train_step(mc, opts[dev], rl, lazy_qhead_lr=LR, device=dev, **aux)
+
+    def on(dev, batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def net(dev, n):
+        st = states[dev]
+        return (st.params[n], st.opt_state[n]) if double_q else (st.params, st.opt_state)
+
+    def grads_of(dev, b, coin):
+        p = net(dev, coin)[0]
+        boot = dict(boot=states[dev].params[1 - coin], aux=steps[dev].aux) if double_q else {}
+        return lazy_loss_and_grads(p, on(dev, b), mc, lazy, rl, **boot)
+
+    # first-step gradients of the main net, per leaf (the sorted rows' too),
+    # as the dense phases hold them; the supervised head's unlabelled
+    # columns at their own scale, to one bf16 step of dl in "default"
+    cpu_first = grads_of("cpu", batches[0], COINS[0])
+    got_g = named_leaves(grads_of("cuda", batches[0], COINS[0])[1])
+    want_g = named_leaves(cpu_first[1])
+    off = torch.ones(A, dtype=torch.bool)
+    off[torch.as_tensor(batches[0]["action"]).long()] = False
+    head0 = "dense/rest/sup_head" if family != "sarm" else "dense/h0"
+    offl = {side: {"kernel off-label": d[f"{head0}/kernel"][:, off],
+                   "bias off-label": d[f"{head0}/bias"][off]}
+            for side, d in (("got", got_g), ("want", want_g))}
+    grad_err = check_close([got_g[k] for k in want_g], list(want_g.values()), list(want_g),
+                           f"{family} fast step: first-step gradient against the CPU twins", 1e-4)
+    grad_err.update(check_close(list(offl["got"].values()), list(offl["want"].values()),
+                                list(offl["want"]), f"{family} fast step: first-step gradient",
+                                DEFAULT_OFF_LABEL_TOL))
+
+    losses = {"cuda": [], "cpu": []}
+    id_diffs, near, flips = 0, [], {}
+    hist = []  # per step: the main net and its CPU gradients in the params' layout
+    # the CPU copy steps as the step function does, from the gradients it
+    # keeps for the comparison masks: lazy_loss_and_grads, lazy_apply_updates
+    for i, (b, coin) in enumerate(zip(batches, COINS)):
+        cpu_p, cpu_o = net("cpu", coin)
+        m_cpu, g, pieces = cpu_first if i == 0 else grads_of("cpu", b, coin)
+        hist.append((coin, lazy_param_grads(g, pieces, cpu_p, family, K)))
+        if double_q:
+            with torch.no_grad():  # the twin's gap between the main net's two best next actions
+                bc = on("cpu", b)
+                h_next = apply_features(cpu_p, mc, bc["next_state"], bc["true_next_len"])
+                v = head_values_plain(h_next, cpu_p[key]["kernel_am"], cpu_p[key]["bias"],
+                                      mc.action_dim, mc.head_precision,
+                                      steps["cpu"].aux.get("q_weights"), action_major=True)
+                top2 = v.topk(2, dim=1).values
+                gap, scale = top2[:, 0] - top2[:, 1], top2[:, 0].abs().max().item()
+            kept_p, kept_o = net("cuda", 1 - coin)
+            before = [t.clone() for t in tree_leaves((kept_p, kept_o.rest.mu, kept_o.rest.nu))]
+            before += [kept_o.qh.mv.clone(), kept_o.count.clone()]
+        states["cuda"], m = steps["cuda"](states["cuda"], b, **(dict(coin=coin) if double_q else {}))
+        lazy_apply_updates(cpu_p, g, pieces, cpu_o, opts["cpu"], family, mc, lazy, on("cpu", b))
+        states["cpu"].step += 1
+        targets = {}
+        for dev, met in (("cuda", m), ("cpu", m_cpu)):
+            losses[dev].append((met["sup_loss"].item(), met["q_loss"].item()))
+            targets[dev] = met.get("target_action")
+        if double_q:
+            after = tree_leaves((kept_p, kept_o.rest.mu, kept_o.rest.nu))
+            after += [kept_o.qh.mv, kept_o.count]
+            if not all(torch.equal(x, y) for x, y in zip(before, after)):
+                fail(f"{family} fast step: the net the step did not train moved")
+            differ = targets["cuda"].cpu() != targets["cpu"]
+            id_diffs += int(differ.sum())
+            near.append(int((gap <= KERNEL_TOL * scale).sum()))
+            if (differ & (gap > KERNEL_TOL * scale)).any():
+                fail(f"{family} fast step: target actions differ from the CPU twins' at rows "
+                     f"whose two best values are more than {KERNEL_TOL:g} of the largest apart")
+        # moments in their bf16 storage: where the two sides' fp32 moments
+        # fall on two sides of a rounding they are one bf16 step apart, and
+        # a later update carries that step on (times b1 or b2) beside its
+        # own: at most one step per update of the net so far; or within the
+        # first-step gradients' 1e-4 of the leaf's largest entry (a moment
+        # far below it carries its gradient's summation order)
+        got_m = lazy_moments(net("cuda", coin)[1], family, K)
+        want_m = lazy_moments(net("cpu", coin)[1], family, K)
+        updates = int(net("cpu", coin)[1].count)
+        for name, pair in want_m.items():
+            for which, (x, y) in enumerate(zip(got_m[name], pair)):
+                st = bf16_steps(x, y)
+                small = (x.float().cpu() - y).abs() <= 1e-4 * y.abs().max()
+                if ((st > updates) & ~small).any():
+                    fail(f"{family} fast step: {'mv'[which]} of {name} differs by "
+                         f"{st[~small].max().item():.3g} bf16 steps from the CPU twins'")
+                f = flips.setdefault((coin, name), torch.zeros(x.shape, dtype=torch.bool))
+                f |= st > 0
+        if int(net("cuda", coin)[1].count) != int(net("cpu", coin)[1].count):
+            fail(f"{family} fast step: the lazy count differs from the CPU twins'")
+    loss_err = max(abs(a - c) for x, y in zip(losses["cuda"], losses["cpu"]) for a, c in zip(x, y))
+    if loss_err > 1e-4:
+        fail(f"{family} fast step: losses {losses['cuda']} differ from the CPU twins' "
+             f"{losses['cpu']}")
+    # params after 3 steps, as the dense phases hold them (lr / 1000 over the
+    # entries some step moved with gradients 0 or above 1e-6), on the
+    # entries whose stored moments agreed at every step; of those whose
+    # stored moments fell apart, a later update moves by up to its moments'
+    # bf16 steps apart (at most 2 after 2 updates, 2^-7 of the update each)
+    # of an update of at most ~2 lr: 3 lr 2^-6 over the 3 steps
+    nets = (0, 1) if double_q else (0,)
+    compared, n_flipped, param_err, flip_err = 0, 0, 0.0, 0.0
+    n_moved = 0
+    for n in nets:
+        got_p, want_p = (named_leaves(net(dev, n)[0]) for dev in ("cuda", "cpu"))
+        for name, want in want_p.items():
+            g = torch.stack([gr[name] if c == n else torch.zeros_like(want) for c, gr in hist])
+            moved = (g != 0).any(dim=0)
+            sure = moved & ((g == 0) | (g.abs() > 1e-6)).all(dim=0)
+            flip = flips.get((n, name), torch.zeros_like(moved))
+            diff = (got_p[name] - want).abs()
+            if (sure & ~flip).any():
+                param_err = max(param_err, diff[sure & ~flip].max().item())
+            if (sure & flip).any():
+                flip_err = max(flip_err, diff[sure & flip].max().item())
+            compared += int((sure & ~flip).sum())
+            n_flipped += int((sure & flip).sum())
+            n_moved += int(moved.sum())
+    if param_err > LR / 1000 or flip_err > 3 * LR * 2.0**-6:
+        fail(f"{family} fast step: params after {len(COINS)} steps differ by {param_err:.3g} "
+             f"(moments equal) / {flip_err:.3g} (a bf16 rounding apart)")
+    if compared < 0.2 * n_moved:
+        fail(f"{family} fast step: too few params compared ({compared} of {n_moved})")
+    print(f"[train] {family} fast: {len(COINS)} steps (coins {COINS if double_q else '-'}) on "
+          f"the card vs the CPU twins: losses (sup, q) {losses['cuda']}, max loss diff "
+          f"{loss_err:.3g}; first-step grads rel diff {json.dumps(grad_err)}; target ids "
+          f"differing {id_diffs} (rows within {KERNEL_TOL:g} of a tie: {near}); params max diff "
+          f"{param_err:.3g} over {compared} of {n_moved} moved entries, {flip_err:.3g} over the "
+          f"{n_flipped} more whose bf16 moments fell apart")
+
+    # -- timed: the card's state goes on; 1 warm-up step, then 20 steps
+    state, step = states["cuda"], steps["cuda"]
+    del states["cpu"]
+    state, _ = step(state, batches[len(COINS)])
+    torch.cuda.synchronize()
+    reset_counters()
+    step_ms, metrics = [], []
+    for b in batches[len(COINS) + 1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m["sup_loss"] + m["q_loss"])
+    launches = counters()
+    check_launches(f"{family} fast", launches, N_TIMED)
+    if not torch.isfinite(torch.stack(metrics)).all():
+        fail(f"non-finite {family} fast train loss")
+    step_ms_line(f"{family} fast", A, E, E, T, B, step_ms, launches,
+                 f"{metrics[-1].item():.5f}", precision="default, bf16 moments, lazy Q heads")
     if profile:
         profile_train(step, state, batches[-1])
     return launches
@@ -1689,7 +2035,7 @@ def trainer_launches(family, outcome, n_steps, n_val, n_test, train_metrics=True
     """The counters a run must show: PER_STEP per train step, and B3 once
     per eval batch (direction): each train-metrics batch, the val passes
     (the warm-up and every eval point, each net) and the test pass."""
-    nets = 2 if family in ("sqn", "smorl") else 1
+    nets = 2 if family.split()[0] in ("sqn", "smorl") else 1
     eval_batches = (n_steps if train_metrics else 0) + n_test
     eval_batches += (1 + nets * len(outcome.logs)) * n_val
     want = {name: PER_STEP[family].get(name, 0) * n_steps for name in counters()}
@@ -1738,12 +2084,12 @@ def profile_trainer(trace_dir):
         print(f"[profile]   {us:10.1f} us  {name[:90]}")
 
 
-def serve_trained_sarm(yaml_path, val_buf, n_rows=512, k=10):
-    """The sarm trainer's ``best_model.npz`` answers ``n_rows`` val sessions
-    in one batch through ``run.recommend.main``, scored by the config's
-    head; top-1 must be the argmax of that head's full masked scores, and
-    of head 3's through ``Recommender`` as well. Returns the CLI's
-    launches."""
+def serve_trained(yaml_path, val_buf, what, heads=(), n_rows=512, k=10):
+    """A trainer's ``best_model.npz`` (its YAML's directory) answers
+    ``n_rows`` val sessions in one batch through ``run.recommend.main``,
+    scored by the config's head; top-1 must be the argmax of that head's
+    full masked scores, and of each of ``heads`` through ``Recommender``
+    as well. Returns the CLI's launches."""
     import os
 
     from ikea_recommender_tpu_torch.core.config import load_experiment_config
@@ -1768,24 +2114,26 @@ def serve_trained_sarm(yaml_path, val_buf, n_rows=512, k=10):
     with open(os.path.join(exp, "recs.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
     if len(records) != n_rows or any(len(r["predictions"]) != k for r in records):
-        fail("the sarm model's recommendations have the wrong number of rows or ids")
+        fail(f"the {what} model's recommendations have the wrong number of rows or ids")
     mc = model_config_from_train(cfg.train, cfg.data)
     params = load_params_npz(os.path.join(exp, "best_model.npz"), device="cuda")
     states, lens = (torch.as_tensor(a, device="cuda") for a in recommend.pad_batch(
         rows, cfg.train.state_size, cfg.padding_id, cfg.train.padding_position))
     top1 = {cfg.train.head_idx: torch.tensor([r["predictions"][0] for r in records],
                                              device="cuda")}
-    rec3 = Recommender(params, mc, head_idx=3, device="cuda")
-    top1[3] = rec3.recommend(states, lens, k=1)[1][:, 0]
+    for head in heads:
+        rec = Recommender(params, mc, head_idx=head, device="cuda")
+        top1[head] = rec.recommend(states, lens, k=1)[1][:, 0]
     for head, ids in top1.items():
         # top-1 is the argmax, up to products summed in another order
         scores = Recommender(params, mc, head_idx=head, device="cuda").scores(states, lens)
         gap = (scores.max(dim=1).values - scores.gather(1, ids[:, None])[:, 0]).max().item()
         if not (torch.isfinite(scores).all() and gap <= GAP):
-            fail(f"the sarm model's top-1 is not the argmax of head {head}'s scores ({gap:.3g})")
-    print(f"[trainer] sarm serving: best_model.npz answered {n_rows} val sessions in one batch "
-          f"through run/recommend.py (head {cfg.train.head_idx}; launches {json.dumps(launches)}); "
-          f"top-1 is the argmax of heads {sorted(top1)}' full masked scores")
+            fail(f"the {what} model's top-1 is not the argmax of head {head}'s scores ({gap:.3g})")
+    print(f"[trainer] {what} serving: best_model.npz ({len(params)} top-level keys: "
+          f"{sorted(params)}) answered {n_rows} val sessions in one batch through "
+          f"run/recommend.py (head {cfg.train.head_idx}; launches {json.dumps(launches)}); top-1 "
+          f"is the argmax of heads {sorted(top1)}' full masked scores")
     return launches
 
 
@@ -1865,8 +2213,8 @@ def phase_trainer(smi, profile=False):
                      launches)
 
         # -- sqn and smorl through train(cfg, buffers), 1 epoch
-        def run(family, epochs, sub, **train_kw):
-            cfg = load_experiment_config(yaml_path)
+        def run(family, epochs, sub, yaml=yaml_path, **train_kw):
+            cfg = load_experiment_config(yaml)
             cfg.exp_dir = os.path.join(tmp, sub)
             cfg.train.model, cfg.train.epochs, cfg.train.checkpoint_dir = family, epochs, None
             cfg.experiment.save_pretrained_embeddings = False
@@ -1916,7 +2264,8 @@ def phase_trainer(smi, profile=False):
                 fail(f"the sarm trainer wrote no {name}")
         paths["trainer_sarm"] = launches
         trainer_line("sarm 1 epoch via train()", res, smi, launches)
-        paths["trainer_sarm_serving"] = serve_trained_sarm(sarm_yaml, bufs["val_buf"])
+        paths["trainer_sarm_serving"] = serve_trained(sarm_yaml, bufs["val_buf"], "sarm",
+                                                      heads=(3,))
 
         # -- determinism and resume (sqn): a 2-epoch run's first epoch is
         # the 1-epoch run's bit for bit; its second, the resumed run's
@@ -1948,10 +2297,70 @@ def phase_trainer(smi, profile=False):
         print(f"[trainer] train metrics cost: gru4rec {gru.throughput_sessions_per_sec:.0f} "
               f"sessions/s on (2 epochs) against {off.throughput_sessions_per_sec:.0f} off "
               f"(1 epoch); {smi}")
+        paths.update(trainer_fast(tmp, yaml_path, run, bufs, n_b, n_val, n_test, smi))
         if profile:
             run("gru4rec", 1, "gru4rec_profiled", profile_dir=os.path.join(tmp, "trace"))
             profile_trainer(os.path.join(tmp, "trace"))
     print(f"[trainer] phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def trainer_fast(tmp, yaml_path, run, bufs, n_b, n_val, n_test, smi):
+    """sqn, smorl and sarm for 1 epoch each from YAMLs that set ``preset:
+    fast`` (bf16 moments, lazy action-major Q heads, "default"): finite
+    logs, ``PER_STEP`` launches of the fast paths, ``best_model.npz`` in the
+    lazy layout; sqn twice and resumed bit for bit, and its best model
+    served through run/recommend.py. Returns each checked run's
+    launches."""
+    import os
+
+    from ikea_recommender_tpu_torch.core.config import load_experiment_config
+
+    paths, yamls = {}, {}
+    for family in ("sqn", "smorl", "sarm"):
+        sub = f"{family}_fast"
+        os.makedirs(os.path.join(tmp, sub))
+        yamls[family] = os.path.join(tmp, sub, "experiment.yaml")
+        with open(yaml_path) as src, open(yamls[family], "w") as dst:
+            dst.write(src.read().replace('model: "gru4rec"', f'model: "{family}"').replace(
+                "  fused_ce: true\n", '  fused_ce: true\n  preset: "fast"\n'))
+        t_cfg = load_experiment_config(yamls[family]).train
+        if (t_cfg.head_precision, t_cfg.optimizer_mv_dtype, t_cfg.qhead_optimizer) != (
+                "default", "bfloat16", "lazy_adam"):
+            fail(f"the fast YAML resolves to {t_cfg.head_precision}, {t_cfg.optimizer_mv_dtype}, "
+                 f"{t_cfg.qhead_optimizer}")
+        torch.cuda.synchronize()
+        reset_counters()
+        kw = dict(checkpoint_dir=os.path.join(tmp, "ckpt_sqn_fast")) if family == "sqn" else {}
+        res = run(family, 1, sub, yaml=yamls[family], **kw)
+        launches = counters()
+        check_logs(f"{family} fast", res)
+        want = trainer_launches(f"{family} fast", res, n_b, n_val, n_test)
+        if launches != want:
+            fail(f"the {family} fast trainer launched {launches}, expected {want}")
+        head = "q_head" if family == "sqn" else "q_heads"
+        with np.load(os.path.join(tmp, sub, "best_model.npz")) as saved:
+            if f"{head}/kernel_am" not in saved.files or f"{head}/kernel" in saved.files:
+                fail(f"the {family} fast best_model.npz is not in the lazy layout: {saved.files}")
+        paths[f"trainer_{family}_fast"] = launches
+        trainer_line(f"{family} fast 1 epoch via train()", res, smi, launches)
+        if family == "sqn":
+            leg1 = res
+
+    full = run("sqn", 2, "sqn_fast_full", yaml=yamls["sqn"])
+    if full.logs[:2] != leg1.logs:
+        fail("two identical fast sqn runs differ")
+    resumed = run("sqn", 2, "sqn_fast_resumed", yaml=yamls["sqn"],
+                  checkpoint_dir=os.path.join(tmp, "ckpt_sqn_fast"), resume=True)
+    if not (resumed.logs == full.logs[2:] and resumed.test_metrics == full.test_metrics
+            and (resumed.best_metric, resumed.best_epoch) == (full.best_metric, full.best_epoch)):
+        fail(f"a resumed fast sqn run differs from the uninterrupted one: best "
+             f"{resumed.best_metric} @ {resumed.best_epoch} against {full.best_metric} @ "
+             f"{full.best_epoch}")
+    print(f"[trainer] sqn fast: a second run's epoch 1 and a resumed run's epoch 2 are "
+          f"bit-identical to the uninterrupted run's (best {full.best_metric:.6f} @ "
+          f"{full.best_epoch})")
+    paths["trainer_sqn_fast_serving"] = serve_trained(yamls["sqn"], bufs["val_buf"], "sqn fast")
     return paths
 
 
@@ -1970,6 +2379,8 @@ def main():
     for family in ("sqn", "smorl"):
         paths[family] = phase_double_q(family, profile=profile)
     paths["sarm"] = phase_sarm(profile=profile)
+    for family in ("sqn", "smorl", "sarm"):
+        paths[f"{family} fast"] = phase_fast(family, profile=profile)
     paths["bidir_gru4rec"] = phase_train("bidir_gru4rec", profile=profile)
     paths["eval"] = phase_eval("gru4rec", smi, profile=profile)
     paths["eval_bidir_gru4rec"] = phase_eval("bidir_gru4rec", smi, profile=profile)
@@ -1998,7 +2409,9 @@ def main():
     kernels = []
     for name, (source, replaces, library) in meta.items():
         row = rows[name]
-        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+        # B5's and B6's action-major launches count as theirs
+        by_path = {path: counts.get(name, 0) + counts.get(f"{name} am", 0)
+                   for path, counts in paths.items()}
         entry = {
             "name": name,
             "route": "cuda",
@@ -2024,10 +2437,17 @@ def main():
                 point = rows[f"B3 {key}"]
                 entry.update({f"{key.replace(' ', '_')}_{k}": point[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        if f"{name} bidir" in rows:  # the bidir_gru4rec point's figures
-            bidir = rows[f"{name} bidir"]
-            entry.update({f"bidir_{k}": bidir[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        # the bidir_gru4rec point's figures; the action-major form's at the
+        # fast points ("default"; its launches "am_launches"); the fast
+        # preset's "default" and the reference preset's "highest"
+        for tag, key in (("bidir", f"{name} bidir"), ("am", f"{name} am"),
+                         ("default", f"{name} default"), ("highest", f"{name} highest"),
+                         ("am_highest", f"{name} am highest")):
+            if key in rows:
+                entry.update({f"{tag}_{k}": rows[key][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if f"{name} am" in rows:
+            entry["am_launches"] = sum(c.get(f"{name} am", 0) for c in paths.values())
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

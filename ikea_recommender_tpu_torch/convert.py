@@ -18,6 +18,14 @@ tree with the reference's init distributions from a numpy seed.
 smorl, whose two nets :func:`numpy_init_double_q` draws from two seeds.
 :func:`tree_leaves` fixes the one leaf order (keys sorted, as JAX orders
 them) that params, gradients and Adam moments share.
+
+The lazy optimizers' layouts cross too: :func:`lazy_params_from_numpy` puts
+a canonical numpy tree in the action-major Q-head layout
+(``train/lazy_adam.py``; ``kernel_am`` (A, K*F), and sarm's ``kernel0``,
+``bias0``, ``bias_rest``), and :func:`lazy_state_from_numpy` carries a
+reference lazy state across: the params (flat ``q_head/kernel_am``-style
+keys or nested), the dense Adam over the ``rest`` tree, the row moment
+buffers ``emb.mv`` and ``qh.mv``, and the per-net ``count``.
 """
 
 from __future__ import annotations
@@ -196,3 +204,44 @@ def double_q_from_numpy(params, opt_state, device="cuda"):
     raise ValueError(
         f"expected one Adam state per net or one over the pair, found {len(adam)}"
     )
+
+
+def lazy_params_from_numpy(params: Mapping, family: str, device="cuda") -> Dict:
+    """A canonical numpy param tree (e.g. :func:`numpy_init_params`) as
+    tensors on ``device`` in the lazy optimizers' action-major Q-head
+    layout."""
+    from ikea_recommender_tpu_torch.train.state import lazy_qhead_params
+
+    return lazy_qhead_params(params_from_numpy(params, device), family)
+
+
+def _lazy_opt_state(opt_state: Mapping, count, dev):
+    from ikea_recommender_tpu_torch.train.lazy_adam import ColAdamState, EmbAdamState
+    from ikea_recommender_tpu_torch.train.state import LazyAdamState
+
+    (adam,) = _adam_states(opt_state["rest"])
+    rest = opt_state_from_numpy(adam, dev)
+    if "rest" not in rest.mu:  # the CE state's Adam runs over the rest tree itself
+        rest.mu, rest.nu = {"rest": rest.mu}, {"rest": rest.nu}
+    count = opt_state.get("count", count)
+    if count is None:
+        raise ValueError("a lazy CE state keeps no count: pass the state's step")
+    emb, qh = opt_state.get("emb"), opt_state.get("qh")
+    return LazyAdamState(
+        rest=rest,
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev),
+        emb=None if emb is None else EmbAdamState(_tensor(emb.mv, dev)),
+        qh=None if qh is None else ColAdamState(_tensor(qh.mv, dev)),
+    )
+
+
+def lazy_state_from_numpy(params, opt_state, step=None, device="cuda"):
+    """A reference lazy state's ``params`` and ``opt_state`` (numpy leaves;
+    for sqn and smorl the (net0, net1) pairs of both) -> (params, opt state)
+    for the port: ``train.state.LazyAdamState`` per net. The CE families'
+    lazy state counts with its ``step``, which is then needed."""
+    dev = resolve_device(device)
+    if isinstance(params, (tuple, list)):
+        return (tuple(params_from_numpy(p, dev) for p in params),
+                tuple(_lazy_opt_state(o, step, dev) for o in opt_state))
+    return params_from_numpy(params, dev), _lazy_opt_state(opt_state, step, dev)

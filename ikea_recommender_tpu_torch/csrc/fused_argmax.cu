@@ -4,8 +4,10 @@
 //
 // Replaces ikea_recommender_tpu/ops/fused_argmax.py::_argmax_kernel (B5,
 // launched by fused_linear_argmax) and ::_wargmax_kernel (B6, launched by
-// fused_weighted_multihead_argmax), in their canonical layouts: W (F, A) for
-// B5 and (K, F, A) for B6; the action-major forms are not ported yet. With
+// fused_weighted_multihead_argmax), in both layouts of W: canonical, (F, A)
+// for B5 and (K, F, A) for B6, and action-major (the TPU kernels' am=True,
+// the lazy optimizers' layout, train/lazy_adam.py), (A, F) for B5 and
+// (A, K F) for B6, head k's column a at w_am[a K F + k F ..]. With
 //   B5: v[i, col] = (h W + b)[i, col]
 //   B6: v[i, col] = sum_k qw[k] * ((h W_k)[i, col] + b[k, col]), summed in
 //       k order from 0 with separate roundings (no fused multiply-add), as
@@ -14,9 +16,9 @@
 // any comparison, the outputs are idx[i] = the lowest col at which v[i, :]
 // is largest (jnp.argmax's rule), and mx[i] = that largest value.
 // Layouts, all contiguous: h (B, F), W as above, b (A) or (K, A), qw (K),
-// all fp32; idx (B) int64, mx (B) fp32. Columns >= valid_dim of W and b may
-// hold anything, NaN included: they never reach a comparison. Nothing past A
-// is read.
+// all fp32; idx (B) int64, mx (B) fp32. Columns >= valid_dim of W (rows of
+// an action-major W) and b may hold anything, NaN included: they never reach
+// a comparison. Nothing past A is read.
 //
 // Precision of the products: "highest" fp32, "high" bf16x3, "default" one
 // bf16 pass, as B1. In "high" and "default" both run on the bf16 tensor
@@ -28,8 +30,10 @@
 // once (18.1 MB, 0.0054 ms at 3.35 TB/s) and does 2 B F A = 2.32 GFLOP per
 // pass; in "high" (three passes on bf16 tensor cores, 989 TFLOP/s) that is
 // 0.00704 ms, so operations bound it. B6 at smorl's K = 3 reads 54.4 MB and
-// does three times the operations: 0.0211 ms. At B = 1 B5 is bound by W's
-// bytes.
+// does three times the operations: 0.0211 ms. In "default" (the fast
+// preset's, one bf16 pass: 0.0023 ms for B5) the bytes bound both: 0.0054 ms
+// for B5 and 0.0162 ms for B6 at K = 3, in either layout. At B = 1 B5 is
+// bound by W's bytes.
 //
 // Design: the TPU walks column blocks in order, carrying a running (max,
 // argmax) from one grid step to the next with a strict > (earlier blocks win
@@ -57,6 +61,14 @@
 // - "highest" (argmax_tile_kernel): the block owns 64 rows x 128 columns
 //   and computes its tile of v in registers (head_tile.cuh's logits tile,
 //   once per head for B6, summed into a second register tile).
+// - Action-major: only the staging of W changes. The head walk copies the
+//   block's COLS rows of W, F contiguous floats of each head (16-byte
+//   cp.async where F % 4 == 0), into a staging buffer of row stride F + 4
+//   and transposes them into the same (F, COLS) bf16 planes (mma_tile.cuh's
+//   fetch_rows_am and split_rows_am, free of bank conflicts at F = 64); the
+//   CUDA-core tile reads W's rows along F. The planes, the products, the
+//   epilogues, the grid and the merge are the canonical form's, so both
+//   forms give the same bits on the same values. W is never laid out again.
 
 #include <climits>
 
@@ -85,19 +97,20 @@ __device__ __forceinline__ void take_better(float& m, int& i, float mo, int io) 
 
 // "highest": per (row, column block), the block's (max, lowest column at
 // the max) of v. qw == nullptr is B5 (K = 1, v = h W + b).
+template <bool AM>
 __global__ void __launch_bounds__(kTileThreads)
 argmax_tile_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ qw,
                    float* __restrict__ part_max, int* __restrict__ part_idx, int B, int F, int A,
                    int K, int valid) {
-  __shared__ TileSmem smem;
+  __shared__ TileSmemT<AM> smem;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * kTileCols, m0 = blockIdx.y * kTileRows;
 
   float v[4][8];
   for (int k = 0; k < K; ++k) {
     float acc[4][8];
-    logits_tile(h, w + (size_t)k * F * A, B, F, A, m0, n0, smem, acc);
+    logits_tile(h, w + (size_t)k * F * (AM ? 1 : A), B, F, A, m0, n0, smem, acc, K * F);
     const float q = qw == nullptr ? 1.0f : qw[k];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -253,12 +266,13 @@ struct ArgmaxEpilogue {
 
 // Bytes of shared memory of argmax_mma_kernel: the walk's, the two column
 // halves' (max, column) of a tile's rows and, for B6, the block's biases.
-__host__ __device__ inline size_t argmax_mma_smem(int F, int P, int K, int cols, bool weighted) {
-  return mma_tile::walk_smem(F, P, K, cols) + 8 * 2 * kWalkRows +
+__host__ __device__ inline size_t argmax_mma_smem(int F, int P, int K, int cols, bool weighted,
+                                                  bool am) {
+  return mma_tile::walk_smem(F, P, K, cols, am) + 8 * 2 * kWalkRows +
          (weighted ? 4 * (size_t)K * cols : 0);
 }
 
-template <int P, int COLS, bool WEIGHTED>
+template <int P, int COLS, bool WEIGHTED, bool AM>
 __global__ void __launch_bounds__(kWalkThreads, 2)
 argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
                   const float* __restrict__ bias, const float* __restrict__ qw,
@@ -267,21 +281,24 @@ argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int heads = WEIGHTED ? K : 1;  // B5's single head known to the compiler
   ArgmaxEpilogue<COLS, WEIGHTED> epi(
-      bias, qw, reinterpret_cast<float*>(smem_raw + mma_tile::walk_smem(F, P, heads, COLS)),
+      bias, qw, reinterpret_cast<float*>(smem_raw + mma_tile::walk_smem(F, P, heads, COLS, AM)),
       part_max, part_idx, B, A, heads, valid);
-  mma_tile::head_walk<P, COLS>(h, w, B, F, A, heads, valid, vec_w, vec_h, smem_raw, epi);
+  mma_tile::head_walk<P, COLS, ArgmaxEpilogue<COLS, WEIGHTED>, mma_tile::kWalkMaxF, AM>(
+      h, w, B, F, A, heads, valid, vec_w, vec_h, smem_raw, epi);
 }
 
 // Columns per block of B6 in "high" and "default": the widest of 128, 64
 // and 32 at which two blocks fit on an SM (233472 bytes of shared memory,
 // 1 KB of it reserved per block), else the widest at which one block fits;
-// 0 if none does. B5 always takes 128.
+// 0 if none does. B5 always takes 128. Reckoned with the action-major
+// staging buffer, the larger of the two layouts', so that the grid and the
+// partials (fused_argmax_scratch) do not depend on the layout.
 int wargmax_cols(int F, int K, int P) {
   constexpr size_t kSmemPerSm = 233472, kReserved = 1024;
   for (int cols = 128; cols >= 32; cols /= 2)
-    if (2 * (argmax_mma_smem(F, P, K, cols, true) + kReserved) <= kSmemPerSm) return cols;
+    if (2 * (argmax_mma_smem(F, P, K, cols, true, true) + kReserved) <= kSmemPerSm) return cols;
   for (int cols = 128; cols >= 32; cols /= 2)
-    if (argmax_mma_smem(F, P, K, cols, true) <= mma_tile::kMaxSmem) return cols;
+    if (argmax_mma_smem(F, P, K, cols, true, true) <= mma_tile::kMaxSmem) return cols;
   return 0;
 }
 
@@ -322,36 +339,53 @@ cudaError_t launch_merge(const float* part_max, const int* part_idx, long long* 
   return cudaGetLastError();
 }
 
-template <int P, int COLS, bool WEIGHTED>
+template <int P, int COLS, bool WEIGHTED, bool AM>
 cudaError_t launch_argmax_mma(const float* h, const float* w, const float* b, const float* qw,
                               float* part_max, int* part_idx, int B, int F, int A, int K,
                               int valid, cudaStream_t st) {
   static size_t allowed[mma_tile::kMaxDevices] = {};
-  const size_t smem = argmax_mma_smem(F, P, K, COLS, WEIGHTED);
-  const void* kernel = (const void*)argmax_mma_kernel<P, COLS, WEIGHTED>;
+  const size_t smem = argmax_mma_smem(F, P, K, COLS, WEIGHTED, AM);
+  const void* kernel = (const void*)argmax_mma_kernel<P, COLS, WEIGHTED, AM>;
   cudaError_t err = mma_tile::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  const int vec_w = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // a 4-float segment of a row lies wholly inside W: A % 4 == 0
+  // (canonical) or F % 4 == 0 (action-major)
+  const int vec_w = (AM ? F : A) % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int vec_h = F % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-  argmax_mma_kernel<P, COLS, WEIGHTED><<<(A + COLS - 1) / COLS, kWalkThreads, smem, st>>>(
+  argmax_mma_kernel<P, COLS, WEIGHTED, AM><<<(A + COLS - 1) / COLS, kWalkThreads, smem, st>>>(
       h, w, b, qw, part_max, part_idx, B, F, A, K, valid, vec_w, vec_h);
   return cudaGetLastError();
 }
 
-template <int P>
+template <int P, bool AM>
 cudaError_t launch_mma(const float* h, const float* w, const float* b, const float* qw,
                        float* part_max, int* part_idx, int B, int F, int A, int K, int valid,
                        int cols, cudaStream_t st) {
   if (qw == nullptr)
-    return launch_argmax_mma<P, 128, false>(h, w, b, qw, part_max, part_idx, B, F, A, 1, valid,
-                                            st);
+    return launch_argmax_mma<P, 128, false, AM>(h, w, b, qw, part_max, part_idx, B, F, A, 1,
+                                                valid, st);
   if (cols == 128)
-    return launch_argmax_mma<P, 128, true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
-                                           st);
+    return launch_argmax_mma<P, 128, true, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K,
+                                               valid, st);
   if (cols == 64)
-    return launch_argmax_mma<P, 64, true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
-                                          st);
-  return launch_argmax_mma<P, 32, true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, st);
+    return launch_argmax_mma<P, 64, true, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K,
+                                              valid, st);
+  return launch_argmax_mma<P, 32, true, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
+                                            st);
+}
+
+template <bool AM>
+cudaError_t launch_layout(const float* h, const float* w, const float* b, const float* qw,
+                          float* part_max, int* part_idx, int B, int F, int A, int K, int valid,
+                          int precision, int cols, cudaStream_t st) {
+  if (precision == 1)
+    return launch_mma<1, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
+  if (precision == 2)
+    return launch_mma<2, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
+  const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
+  argmax_tile_kernel<AM><<<grid, kTileThreads, 0, st>>>(h, w, b, qw, part_max, part_idx, B, F,
+                                                        A, K, valid);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -365,29 +399,25 @@ extern "C" long long fused_argmax_scratch(int B, int F, int A, int K, int weight
 }
 
 // Launches B5 (qw == NULL, K == 1) or B6 on `stream`: idx (B) int64 and mx
-// (B) fp32 of the argmax described above. In "high" and "default" F may be
-// at most 128 and K at most 5. Returns cudaGetLastError() (0 on success).
+// (B) fp32 of the argmax described above, on a canonical W (action_major 0)
+// or an action-major one (1). In "high" and "default" F may be at most 128
+// and K at most 5. Returns cudaGetLastError() (0 on success).
 extern "C" int fused_argmax(const float* h, const float* w, const float* b, const float* qw,
                             long long* idx, float* mx, float* part_max, int* part_idx, int B,
-                            int F, int A, int K, int valid, int precision, void* stream) {
+                            int F, int A, int K, int valid, int precision, int action_major,
+                            void* stream) {
   if (B < 1 || F < 1 || A < 1 || K < 1 || (qw == nullptr && K != 1) || valid < 0 ||
-      valid > A || precision < 0 || precision > 2 ||
+      valid > A || precision < 0 || precision > 2 || action_major < 0 || action_major > 1 ||
       (precision != 0 && (F > mma_tile::kWalkMaxF || K > kMmaMaxHeads)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = block_cols(F, K, qw != nullptr, precision);
   if (cols < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (precision == 1) {
-    err = launch_mma<1>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
-  } else if (precision == 2) {
-    err = launch_mma<2>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
-  } else {
-    const dim3 grid((A + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
-    argmax_tile_kernel<<<grid, kTileThreads, 0, st>>>(h, w, b, qw, part_max, part_idx, B, F, A,
-                                                      K, valid);
-    err = cudaGetLastError();
-  }
+  const cudaError_t err =
+      action_major ? launch_layout<true>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
+                                         precision, cols, st)
+                   : launch_layout<false>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid,
+                                          precision, cols, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_max, part_idx, idx, mx, B, (A + cols - 1) / cols, st);
 }

@@ -19,18 +19,26 @@ constexpr float kNeg = -1e30f;
 // memory in chunks of kTileK.
 constexpr int kTileThreads = 256, kTileRows = 64, kTileCols = 128, kTileK = 16;
 
-struct TileSmem {
+// With AM (B5 and B6 on an action-major W) the rows of w's tile are padded
+// by one float, so that its transposing stores fall on distinct banks.
+template <bool AM>
+struct TileSmemT {
   float h[kTileRows][kTileK + 1];
-  float w[kTileK][kTileCols];
+  float w[kTileK][kTileCols + (AM ? 1 : 0)];
 };
+using TileSmem = TileSmemT<false>;
 
 // acc[i][j] = (h W)[m0 + ty + 16 i, n0 + tx + 16 j] in fp32, for h (B, F)
 // and W (F, A) contiguous; rows >= B and columns >= A read as 0, so nothing
-// past either array is read. Every thread of the block must call it; it
-// leaves `s` free for the next call.
+// past either array is read. With AM, W is read action-major: column n of
+// W is w[n ld ..], F floats (`w` at the head's first float, ld = K F), read
+// along F by neighbouring threads. Every thread of the block must call it;
+// it leaves `s` free for the next call.
+template <bool AM>
 __device__ __forceinline__ void logits_tile(const float* __restrict__ h,
                                             const float* __restrict__ w, int B, int F, int A,
-                                            int m0, int n0, TileSmem& s, float (&acc)[4][8]) {
+                                            int m0, int n0, TileSmemT<AM>& s, float (&acc)[4][8],
+                                            int ld = 0) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -43,8 +51,13 @@ __device__ __forceinline__ void logits_tile(const float* __restrict__ h,
       s.h[m][k] = (m0 + m < B && k0 + k < F) ? h[(size_t)(m0 + m) * F + k0 + k] : 0.0f;
     }
     for (int e = tid; e < kTileK * kTileCols; e += kTileThreads) {
-      const int k = e / kTileCols, n = e % kTileCols;
-      s.w[k][n] = (k0 + k < F && n0 + n < A) ? w[(size_t)(k0 + k) * A + n0 + n] : 0.0f;
+      if constexpr (AM) {
+        const int k = e % kTileK, n = e / kTileK;
+        s.w[k][n] = (k0 + k < F && n0 + n < A) ? w[(size_t)(n0 + n) * ld + k0 + k] : 0.0f;
+      } else {
+        const int k = e / kTileCols, n = e % kTileCols;
+        s.w[k][n] = (k0 + k < F && n0 + n < A) ? w[(size_t)(k0 + k) * A + n0 + n] : 0.0f;
+      }
     }
     __syncthreads();
 #pragma unroll 4

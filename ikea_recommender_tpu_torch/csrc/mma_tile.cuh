@@ -242,13 +242,65 @@ __device__ __forceinline__ void split_cols(const Planes& ws, const float* stage,
   }
 }
 
+// The action-major forms of the two above, for B5 and B6 on the lazy
+// optimizers' layout: w_am (A, ld) row-major, ld = K F, head k's F floats of
+// action a at w_am[a ld + k F ..]; `w` points at head k's first float. Rows
+// n0..n0+COLS go into the (COLS, F) fp32 buffer `stage` with a row stride of
+// am_stride(F) = F + 4 floats (16-byte rows when F % 4 == 0); rows >= A read
+// nothing and land as 0. With `vec` (F % 4 == 0 and w_am 16-byte aligned) a
+// copy moves 16 bytes of a row, else 4.
+__host__ __device__ inline int am_stride(int F) { return F + 4; }
+
+template <int COLS, int THREADS>
+__device__ __forceinline__ void fetch_rows_am(float* stage, const float* w, int F, int ld,
+                                              int A, int n0, int vec) {
+  const int tid = threadIdx.x, sf = am_stride(F);
+  if (vec) {
+    for (int e = tid; e < COLS * F / 4; e += THREADS) {
+      const int c = e / (F / 4), k = 4 * (e % (F / 4));
+      float* dst = stage + c * sf + k;
+      if (n0 + c < A)
+        cp_async16(dst, w + (size_t)(n0 + c) * ld + k);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = tid; e < COLS * F; e += THREADS) {
+      const int c = e / F, k = e % F;
+      if (n0 + c < A)
+        cp_async4(stage + c * sf + k, w + (size_t)(n0 + c) * ld + k);
+      else
+        stage[c * sf + k] = 0.0f;
+    }
+  }
+  cp_async_commit();
+}
+
+// The staged (COLS, F) rows into the (fp, COLS) planes ws, transposed, rows
+// F..fp and columns >= valid as 0, as split_cols. A warp takes 8 rows k of
+// the planes by 4 column pairs c: its reads stage[c (F + 4) + k] and its
+// bf16x2 writes at k (COLS + 8) + c fall on 32 distinct banks at F = 64.
+template <int P, int COLS, int THREADS>
+__device__ __forceinline__ void split_rows_am(const Planes& ws, const float* stage, int F,
+                                              int fp, int n0, int valid) {
+  const int sf = am_stride(F), kb = fp / 8;
+  for (int e = threadIdx.x; e < fp * COLS / 2; e += THREADS) {
+    const int lane = e % 32, grp = e / 32;
+    const int k = 8 * (grp % kb) + lane % 8, c = 8 * (grp / kb) + 2 * (lane / 8);
+    const float* src = stage + c * sf + k;
+    store_split2<P>(ws, k * ws.ld + c, k < F && n0 + c < valid ? src[0] : 0.0f,
+                    k < F && n0 + c + 1 < valid ? src[sf] : 0.0f);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The head walk of B1 (fused_ce.cu), B5 and B6 (fused_argmax.cu)
 // ---------------------------------------------------------------------------
 //
 // A block of kWalkThreads threads owns COLS (128, 64 or 32) columns,
 // n0 = COLS * blockIdx.x onwards, of K heads W_k (F, A), stored (K, F, A)
-// contiguous. It splits them into planes once, columns >= valid and rows
+// contiguous, or with AM action-major (A, K F), as fetch_rows_am reads it.
+// It splits them into planes once, columns >= valid and rows
 // F..fp as 0, so nothing there (NaN included) reaches a product; each head
 // comes through the fp32 staging buffer by cp.async. Then it walks all B
 // rows of h (B, F) in tiles of kWalkRows. A tile arrives by cp.async in
@@ -278,17 +330,18 @@ constexpr int kWalkNarrowMaxF = 256;
 
 // Bytes of shared memory of the walk (the epilogue's come after them): the
 // K heads' planes of W's columns, the planes of a tile of h, and the fp32
-// staging buffer, which holds one head's (F, COLS) columns or two
-// (kWalkRows, min(F, kWalkSlice)) slices of h. A multiple of 16.
-__host__ __device__ inline size_t walk_smem(int F, int P, int K, int cols) {
+// staging buffer, which holds one head's (F, COLS) columns (action-major:
+// (COLS, F + 4)) or two (kWalkRows, min(F, kWalkSlice)) slices of h. A
+// multiple of 16.
+__host__ __device__ inline size_t walk_smem(int F, int P, int K, int cols, bool am = false) {
   const size_t fp = (F + 15) / 16 * 16, planes = P == 1 ? 2 : 1;
-  const size_t w_stage = 4 * (size_t)F * cols;
+  const size_t w_stage = 4 * (size_t)(am ? am_stride(F) : F) * cols;
   const size_t h_stage = 4 * (size_t)(F < kWalkSlice ? F : kWalkSlice) * 2 * kWalkRows;
   return 2 * planes * (K * fp * (cols + 8) + kWalkRows * (fp + 8)) +
          (w_stage > h_stage ? w_stage : h_stage);
 }
 
-template <int P, int COLS, class Epi, int MAXF = kWalkMaxF>
+template <int P, int COLS, class Epi, int MAXF = kWalkMaxF, bool AM = false>
 __device__ __forceinline__ void head_walk(const float* __restrict__ h,
                                           const float* __restrict__ w, int B, int F, int A,
                                           int K, int valid, int vec_w, int vec_h,
@@ -319,10 +372,16 @@ __device__ __forceinline__ void head_walk(const float* __restrict__ h,
   const int tid = threadIdx.x, warp = tid / 32, wr = warp % 4, wc = warp / 4;
   const int n0 = blockIdx.x * COLS;
   for (int k = 0; k < K; ++k) {
-    fetch_cols<COLS, kWalkThreads>(stage, w + (size_t)k * F * A, F, A, n0, vec_w);
+    if constexpr (AM)
+      fetch_rows_am<COLS, kWalkThreads>(stage, w + (size_t)k * F, F, K * F, A, n0, vec_w);
+    else
+      fetch_cols<COLS, kWalkThreads>(stage, w + (size_t)k * F * A, F, A, n0, vec_w);
     cp_async_wait<0>();
     __syncthreads();
-    split_cols<P, COLS, kWalkThreads>(head_planes(k), stage, F, fp, n0, valid);
+    if constexpr (AM)
+      split_rows_am<P, COLS, kWalkThreads>(head_planes(k), stage, F, fp, n0, valid);
+    else
+      split_cols<P, COLS, kWalkThreads>(head_planes(k), stage, F, fp, n0, valid);
     __syncthreads();  // the staging buffer is free
   }
 

@@ -89,17 +89,21 @@ def apply_backbone(
     *,
     dropout_generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    inputs_embeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Encode a batch of padded sessions -> (B, feature_dim) float32.
 
     With ``cfg.dropout > 0`` and ``deterministic=False`` the head input goes
-    through dropout, its keep mask drawn from ``dropout_generator``."""
+    through dropout, its keep mask drawn from ``dropout_generator``.
+    ``inputs_embeds`` (B, T, E) replaces the table gather: the lazy
+    embedding Adam gathers the rows outside autograd, so their gradient
+    stays (B, T, E) instead of a (V, E) scatter."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only "
-            "so far; bfloat16 compute comes with a later slice"
+            "so far; bfloat16 compute comes with ROADMAP A.8b"
         )
-    x = params["embedding"][states.long()]  # (B, T, E)
+    x = params["embedding"][states.long()] if inputs_embeds is None else inputs_embeds
     lens = lengths if cfg.masked_recurrence else None
 
     finals_fwd: List[torch.Tensor] = []

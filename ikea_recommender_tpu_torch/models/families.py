@@ -22,6 +22,7 @@ import torch
 
 from ikea_recommender_tpu_torch.models.backbone import BackboneConfig, apply_backbone
 from ikea_recommender_tpu_torch.models.heads import linear_apply, multihead_apply
+from ikea_recommender_tpu_torch.train.lazy_adam import from_action_major
 
 FAMILIES = ("gru4rec", "bidir_gru4rec", "sqn", "smorl", "sarm")
 
@@ -106,8 +107,11 @@ def apply_features(
     *,
     dropout_generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    inputs_embeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Backbone features (B, F) — the input every head shares."""
+    """Backbone features (B, F) — the input every head shares.
+    ``inputs_embeds`` (B, T, E) takes the place of the table gather (the
+    lazy embedding Adam's rows, gathered outside autograd)."""
     return apply_backbone(
         params["backbone"],
         cfg.backbone,
@@ -115,6 +119,7 @@ def apply_features(
         lengths,
         dropout_generator=dropout_generator,
         deterministic=deterministic,
+        inputs_embeds=inputs_embeds,
     )
 
 
@@ -128,17 +133,29 @@ def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def canonicalize_qheads(params: Dict, cfg: ModelConfig) -> Dict:
-    """The reference's lazy optimizers store Q-head kernels action-major
-    (``kernel_am``, and SARM's split ``kernel0``); the port reads only the
-    canonical (K, F, A) layout so far."""
-    for name in ("q_head", "q_heads"):
-        head = params.get(name, {})
-        if "kernel_am" in head or "kernel0" in head:
-            raise NotImplementedError(
-                f"{name} holds a lazy action-major layout (kernel_am/kernel0); "
-                "the port reads it from the presets and lazy-optimizers slice "
-                "on (ROADMAP A.8). Export canonical (K, F, A) kernels instead."
-            )
+    """The lazy optimizers keep the Q-head kernels action-major
+    (``kernel_am`` (A, K*F); sarm splits off its densely updated head 0 as
+    ``kernel0``/``bias0`` — ``train/lazy_adam.py``). This transposes them
+    back to the canonical (K, F, A) layout for the consumers that read it
+    (the dense paths, serving): a copy, never taken on a train step, whose
+    fused kernels read the action-major layout as it is. Canonical params
+    come back unchanged."""
+    fam = cfg.family
+    if fam == "sqn" and "kernel_am" in params.get("q_head", {}):
+        qh = params["q_head"]
+        k = from_action_major(qh["kernel_am"], 1)[0].contiguous()
+        params = {**params, "q_head": {"kernel": k, "bias": qh["bias"]}}
+    elif fam == "smorl" and "kernel_am" in params.get("q_heads", {}):
+        qh = params["q_heads"]
+        k = from_action_major(qh["kernel_am"], cfg.num_q_heads).contiguous()
+        params = {**params, "q_heads": {"kernel": k, "bias": qh["bias"]}}
+    elif fam == "sarm" and "kernel0" in params.get("q_heads", {}):
+        qh = params["q_heads"]
+        krest = from_action_major(qh["kernel_am"], cfg.num_q_heads - 1)
+        params = {**params, "q_heads": {
+            "kernel": torch.cat([qh["kernel0"][None], krest], 0),
+            "bias": torch.cat([qh["bias0"][None], qh["bias_rest"]], 0),
+        }}
     return params
 
 

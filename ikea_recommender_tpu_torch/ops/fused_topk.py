@@ -2,7 +2,8 @@
 exist whole.
 
 Port of ``ikea_recommender_tpu/ops/fused_topk.py`` (``blockwise_head_topk_ce``,
-``blockwise_multihead_max`` and ``eval_head``). The reference runs a
+``blockwise_multihead_max``, ``blockwise_multihead_max_am`` and
+``eval_head``). The reference runs a
 ``lax.scan`` over 4096-column blocks of the head, not a Pallas kernel; here
 it is a loop over the same blocks, each one head product. Per sample it
 keeps an exact running top-k, a running logsumexp and the label logit, or
@@ -29,8 +30,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ikea_recommender_tpu_torch.models.families import canonicalize_qheads
 from ikea_recommender_tpu_torch.ops.fused_ce import _bf16, _dot, _split
+from ikea_recommender_tpu_torch.train.lazy_adam import from_action_major
 
 # Masked (padded / not-yet-seen) logit sentinel. Finite so the running-max
 # rescale exp(m_old - m_new) never sees inf - inf.
@@ -156,40 +157,81 @@ def blockwise_multihead_max(
     the real catalog instead of being padded with columns that the mask
     would set to -1e30, and a block with no real column is skipped:
     neither can change a max."""
+    return _multihead_max(h, kernel, bias, action_dim, block_cols, precision, False)
+
+
+def blockwise_multihead_max_am(
+    h: torch.Tensor,  # (B, F)
+    kernel_am: torch.Tensor,  # (A_pad, K*F) action-major (train/lazy_adam.py)
+    bias: torch.Tensor,  # (K, A_pad)
+    action_dim: int,
+    block_cols: int = DEFAULT_BLOCK_COLS,
+    precision: Optional[str] = None,
+) -> torch.Tensor:
+    """:func:`blockwise_multihead_max` over the lazy optimizers' action-major
+    kernel: each block is (BLK, K*F) rows of it, taken by a transposed
+    product, so the head is never laid out again. The same pieces, order
+    and masking."""
+    K = bias.shape[0]
+    F = kernel_am.shape[1] // K
+    # (K, F, A_pad) as a view of the (A_pad, K F) rows: no copy
+    kernel = kernel_am.detach().view(kernel_am.shape[0], K, F).permute(1, 2, 0)
+    return _multihead_max(h, kernel, bias, action_dim, block_cols, precision, True)
+
+
+def _multihead_max(h, kernel, bias, action_dim, block_cols, precision, action_major):
     h, kernel, bias = h.detach(), kernel.detach(), bias.detach()
     K, _, A_pad = kernel.shape
     block_cols = min(block_cols, A_pad)
     precision = precision or "highest"
-    if precision == "highest":
-        pieces = [(h, kernel)]
-    elif precision == "default":
-        pieces = [(_bf16(h), _bf16(kernel))]
-    else:  # "high": hi hi + hi lo + lo hi, in _dot's order
-        (h_hi, h_lo), (w_hi, w_lo) = _split(h), _split(kernel)
-        pieces = [(h_hi, w_hi), (h_hi, w_lo), (h_lo, w_hi)]
     m = torch.full((K, h.shape[0]), _NEG, device=h.device)
+    whole = None if action_major else _pieces(h, kernel, precision)
     for start in range(0, min(action_dim, A_pad), block_cols):
         stop = min(start + block_cols, A_pad, action_dim)
+        # the canonical form splits the whole head once, the action-major
+        # form each block's rows as it takes them
+        if action_major:
+            pieces, cols = _pieces(h, kernel[:, :, start:stop], precision), slice(None)
+        else:
+            pieces, cols = whole, slice(start, stop)
         (a, w), rest = pieces[0], pieces[1:]
-        logits = torch.baddbmm(bias[:, None, start:stop], a.expand(K, -1, -1), w[:, :, start:stop])
+        logits = torch.baddbmm(bias[:, None, start:stop], a.expand(K, -1, -1), w[:, :, cols])
         for a, w in rest:  # (K, B, W), accumulated in place
-            logits.baddbmm_(a.expand(K, -1, -1), w[:, :, start:stop])
+            logits.baddbmm_(a.expand(K, -1, -1), w[:, :, cols])
         m = torch.maximum(m, logits.amax(dim=2))
     return m.T
 
 
+def _pieces(h, kernel, precision):
+    """``_dot``'s operand pieces of h and the kernel, in its order."""
+    if precision == "highest":
+        return [(h, kernel)]
+    if precision == "default":
+        return [(_bf16(h), _bf16(kernel))]
+    (h_hi, h_lo), (w_hi, w_lo) = _split(h), _split(kernel)  # "high"
+    return [(h_hi, w_hi), (h_hi, w_lo), (h_lo, w_hi)]
+
+
 def eval_head(params: Dict, model_cfg, head_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(kernel (F, A_pad), bias (A_pad,)) of the head that serving and the
-    eval protocol score with."""
-    params = canonicalize_qheads(params, model_cfg)
+    eval protocol score with. On a lazily trained sarm, head 0 is
+    ``kernel0`` as it is; heads 1-4 are transposed out of ``kernel_am``."""
     fam = model_cfg.family
     if fam == "sarm":
         mh = params["q_heads"]
+        if "kernel0" in mh:  # the lazy action-major sarm layout
+            if head_idx == 0:
+                return mh["kernel0"], mh["bias0"]
+            krest = from_action_major(mh["kernel_am"], mh["bias_rest"].shape[0])
+            return krest[head_idx - 1].contiguous(), mh["bias_rest"][head_idx - 1]
         return mh["kernel"][head_idx], mh["bias"][head_idx]
     if head_idx == 0:
         return params["sup_head"]["kernel"], params["sup_head"]["bias"]
     if fam == "sqn" and head_idx == 1:
-        return params["q_head"]["kernel"], params["q_head"]["bias"]
+        qh = params["q_head"]
+        if "kernel_am" in qh:
+            return from_action_major(qh["kernel_am"], 1)[0].contiguous(), qh["bias"]
+        return qh["kernel"], qh["bias"]
     raise ValueError(
         f"fused eval supports single linear heads; family={fam} head_idx={head_idx}"
     )

@@ -4,8 +4,10 @@ Port of ``ikea_recommender_tpu/run/serve.py::Recommender`` on one device.
 Big catalogs (``action_dim >= FUSED_CE_MIN_ACTIONS``) score the head
 blockwise (``ops/fused_topk.py``: the (B, A) logits never exist whole);
 small ones take the dense logits and one top-k. Either way equal scores
-rank the lower action id first, as in the reference. A model-sharded head
-over several GPUs comes with the multi-GPU slice.
+rank the lower action id first, as in the reference. Params of a lazily
+trained model (action-major Q heads, ``train/lazy_adam.py``) are laid out
+canonically once, when the recommender is built. A model-sharded head over
+several GPUs comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ikea_recommender_tpu_torch.models.families import (
     ModelConfig,
     apply_features,
     apply_model,
+    canonicalize_qheads,
 )
 from ikea_recommender_tpu_torch.ops.fused_topk import (
     blockwise_head_topk_ce,
@@ -41,7 +44,8 @@ class Recommender:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params = canonicalize_qheads(tree_map(lambda t: t.to(self.device), params),
+                                          model_cfg)
         self.model_cfg = model_cfg
         self.head_idx = head_idx
         fam = model_cfg.family

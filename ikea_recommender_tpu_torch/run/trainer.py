@@ -34,11 +34,14 @@ the TPU's one-dispatch form and are not ported), and the params come in
 rather than being drawn: the port cannot reproduce JAX's PRNG init, so
 ``train`` starts from ``convert.numpy_init_params`` (``numpy_init_double_q``
 for the double-Q pair) seeded by the config, or from ``init_params``.
-The lazy optimizers (``optimizer: lazy_adam``, and ``qhead_optimizer:
-lazy_adam`` on sqn, smorl or sarm, set or from ``preset: fast``) and a
-device mesh raise, naming their ROADMAP item. The preset's fallback to
-dense Adam comes with the lazy arm, so the port never trains dense Adam
-where the reference would run its lazy Adam.
+The lazy optimizers run as the reference's: ``optimizer: lazy_adam`` (lazy
+embedding rows) and ``qhead_optimizer: lazy_adam`` on sqn, smorl or sarm
+(lazy action-major Q-head rows, also set by ``preset: fast``), under the
+reference's preconditions: where one fails, a preset's setting falls back
+to dense Adam with a ``[trainer]`` line and an explicit one raises. The
+lazily trained params keep the action-major layout in the checkpoints and
+in ``best_model.npz``, as the reference saves them. A device mesh raises,
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -78,7 +81,11 @@ from ikea_recommender_tpu_torch.models.families import model_config_from_train
 from ikea_recommender_tpu_torch.run.checkpoints import BestModelTracker, CheckpointManager
 from ikea_recommender_tpu_torch.train.state import (
     DoubleQState,
+    LazyAdamState,
     make_double_q_state,
+    make_lazy_double_q_state,
+    make_lazy_sarm_state,
+    make_lazy_train_state,
     make_train_state,
 )
 from ikea_recommender_tpu_torch.train.steps import RLStepConfig, make_train_step
@@ -89,7 +96,6 @@ from ikea_recommender_tpu_torch.utils.logging_dicts import (
 )
 
 DOUBLE_Q_FAMILIES = ("sqn", "smorl")
-_LAZY = "the lazy optimizers and the preset fallback come with ROADMAP A.8"
 _MESH = "comes with the multi-GPU slice (ROADMAP A.9)"
 
 
@@ -160,9 +166,16 @@ def _window_index_matrices(perm: np.ndarray, batch_size: int):
 
 def _adam_leaves(state) -> List:
     """[count, mu, nu] of each Adam state of ``state``'s optimizer: one, or
-    one per net."""
+    one per net; a lazy state adds its count and its row moment buffers."""
     opt = state.opt_state
-    return [[s.count, s.mu, s.nu] for s in (opt if isinstance(opt, (tuple, list)) else [opt])]
+    out = []
+    for s in opt if isinstance(opt, (tuple, list)) else [opt]:
+        if isinstance(s, LazyAdamState):
+            out.append([s.rest.count, s.rest.mu, s.rest.nu, s.count]
+                       + [part.mv for part in (s.emb, s.qh) if part is not None])
+        else:
+            out.append([s.count, s.mu, s.nu])
+    return out
 
 
 def _state_payload(state) -> Dict:
@@ -201,12 +214,9 @@ def _check_supported(cfg: Config) -> None:
         raise ValueError(f"unknown optimizer {t_cfg.optimizer!r}")
     if t_cfg.qhead_optimizer not in (None, "adam", "lazy_adam"):
         raise ValueError(f"unknown qhead_optimizer {t_cfg.qhead_optimizer!r}")
-    # qhead_optimizer is a no-op for families without Q heads (the fast
-    # preset sets it unconditionally), as in the reference
-    if t_cfg.optimizer == "lazy_adam" or (
-        t_cfg.qhead_optimizer == "lazy_adam" and family in ("sqn", "smorl", "sarm")
-    ):
-        raise NotImplementedError(f"optimizer 'lazy_adam': {_LAZY}")
+    if t_cfg.optimizer == "lazy_adam" and family in ("sqn", "smorl", "sarm") and (
+            t_cfg.double_q_optimizers == 1):
+        raise ValueError("lazy optimizers need double_q_optimizers=2")
     if p_cfg.enabled:
         raise NotImplementedError(f"parallel.data x parallel.model > 1: a device mesh {_MESH}")
     if p_cfg.sharded_ce:
@@ -215,6 +225,32 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(f"parallel.process_sharded {_MESH}")
     if t_cfg.double_q_optimizers not in (1, 2):
         raise ValueError(f"double_q_optimizers must be 1 or 2, got {t_cfg.double_q_optimizers}")
+
+
+def _lazy_qhead(t_cfg, model_cfg) -> bool:
+    """Whether the Q heads take lazy Adam: ``qhead_optimizer: lazy_adam`` on
+    sqn, smorl or sarm (a no-op elsewhere, as the fast preset sets it for
+    every family), under the reference's preconditions. Where one fails, a
+    setting from ``preset: fast`` falls back to dense Adam with a line, and
+    an explicit setting raises."""
+    family = t_cfg.model
+    if t_cfg.qhead_optimizer != "lazy_adam" or family not in ("sqn", "smorl", "sarm"):
+        return False
+    blocker = None
+    if t_cfg.double_q_optimizers == 1:
+        blocker = "double_q_optimizers=1 (lazy optimizers need 2)"
+    elif not model_cfg.fused_ce:
+        blocker = ("the fused train path resolved off (fused_ce=False or catalog under "
+                   "fused_ce_min_actions)")
+    elif family == "sqn" and t_cfg.head_idx != 0:
+        # the eval head would be the action-major q head
+        blocker = "head_idx != 0"
+    if blocker is None:
+        return True
+    if getattr(t_cfg, "qhead_from_preset", False):
+        print(f"[trainer] {blocker}: preset-fast qhead_optimizer falls back to dense Adam")
+        return False
+    raise ValueError(f"qhead_optimizer='lazy_adam' unsupported here: {blocker}")
 
 
 def train(
@@ -322,21 +358,34 @@ def train(
         single_optimizer=(t_cfg.double_q_optimizers == 1),
     )
     lr, mv = t_cfg.learning_rate, t_cfg.optimizer_mv_dtype
+    lazy_emb = t_cfg.optimizer == "lazy_adam"
+    lazy_qh = _lazy_qhead(t_cfg, model_cfg)
+    lazy_kw = dict(lazy_emb=lazy_emb, lazy_qh=lazy_qh, seed=cfg.seed, device=dev)
     if family in DOUBLE_Q_FAMILIES:
         pair = init_params if init_params is not None else numpy_init_double_q(
             model_cfg, (cfg.seed, cfg.seed + 1))
-        state, opt = make_double_q_state(
-            [params_from_numpy(p, dev) for p in pair], model_cfg, lr, mv,
-            single_optimizer=rl.single_optimizer, seed=cfg.seed, device=dev,
-        )
+        pair = [params_from_numpy(p, dev) for p in pair]
+        if lazy_emb or lazy_qh:
+            state, opt = make_lazy_double_q_state(pair, model_cfg, lr, mv, **lazy_kw)
+        else:
+            state, opt = make_double_q_state(pair, model_cfg, lr, mv,
+                                             single_optimizer=rl.single_optimizer,
+                                             seed=cfg.seed, device=dev)
     else:
         np_params = init_params if init_params is not None else numpy_init_params(
             model_cfg, cfg.seed)
-        state, opt = make_train_state(params_from_numpy(np_params, dev), model_cfg, lr, mv,
-                                      seed=cfg.seed, device=dev)
+        params = params_from_numpy(np_params, dev)
+        if family == "sarm" and (lazy_emb or lazy_qh):
+            state, opt = make_lazy_sarm_state(params, model_cfg, lr, mv, **lazy_kw)
+        elif lazy_emb:
+            state, opt = make_lazy_train_state(params, model_cfg, lr, mv, seed=cfg.seed,
+                                               device=dev)
+        else:
+            state, opt = make_train_state(params, model_cfg, lr, mv, seed=cfg.seed, device=dev)
     step_fn = make_train_step(
         model_cfg, opt, rl, div_embedding=div_emb, unpopular_mask=unpop_mask,
-        out_to_in=out_to_in, device=dev,
+        out_to_in=out_to_in, lazy_embedding_lr=lr if lazy_emb else None,
+        lazy_qhead_lr=lr if lazy_qh else None, device=dev,
     )
     protocol = EvalProtocol(
         model_cfg,

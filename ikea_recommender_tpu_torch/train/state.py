@@ -2,8 +2,22 @@
 
 Port of ``ikea_recommender_tpu/train/state.py`` (``TrainState``,
 ``DoubleQState``, ``make_optimizer``, ``_scale_by_adam_mv``,
-``make_train_state`` and ``make_double_q_state``): one network for gru4rec
-and bidir_gru4rec, the (net0, net1) pair of sqn and smorl.
+``make_train_state``, ``make_double_q_state`` and the lazy optimizers'
+builders: ``split_embedding``, ``merge_embedding``,
+``make_lazy_train_state``, ``split_qhead``, ``lazy_qhead_params``,
+``_lazy_net_opt_state``, ``make_lazy_double_q_state`` and
+``make_lazy_sarm_state``): one network for gru4rec and bidir_gru4rec, the
+(net0, net1) pair of sqn and smorl.
+
+The lazy states (``train/lazy_adam.py``) split each net's params in two:
+the dense part, under dense Adam, and the lazily updated embedding table
+and/or action-major Q heads, whose moments live in their own buffers. The
+dense part is ``{"rest": params without the lazy leaves}`` plus, for sarm's
+lazy heads, ``"h0"``: its head 0 (``kernel0``, ``bias0``), which the CE
+trains densely (:func:`dense_part`). A :class:`LazyAdamState` holds the
+dense part's Adam state, the lazy moment buffers and the count that their
+bias correction reads, which advances only on the steps that train the
+net (the reference's per-net ``count``).
 
 Adam is written out as tensor operations rather than taken from
 ``torch.optim``, so that the bf16-moment variant, and the lazy variants that
@@ -172,3 +186,144 @@ def make_double_q_state(
     opt = make_optimizer(learning_rate, mv_dtype)
     opt_state = opt.init(pair) if single_optimizer else tuple(opt.init(p) for p in pair)
     return DoubleQState(pair, opt_state, 0, torch.Generator().manual_seed(seed)), opt
+
+
+# ---------------------------------------------------------------------------
+# Lazy optimizers (train/lazy_adam.py)
+# ---------------------------------------------------------------------------
+
+QH_KEY = {"sqn": "q_head", "smorl": "q_heads", "sarm": "q_heads"}
+
+
+@dataclass
+class LazyAdamState:
+    """One net's optimizer state on the lazy paths: dense Adam over
+    :func:`dense_part`, the embedding's row moments (``emb``, with
+    ``optimizer: lazy_adam``), the action-major Q heads' row moments
+    (``qh``, with ``qhead_optimizer: lazy_adam``) and the count (int32
+    scalar tensor) of the updates of the lazy parts so far."""
+
+    rest: AdamState
+    count: torch.Tensor
+    emb: Any = None  # lazy_adam.EmbAdamState
+    qh: Any = None  # lazy_adam.ColAdamState
+
+
+def split_embedding(params: Dict) -> Tuple[torch.Tensor, Dict]:
+    """(embedding table, params without it)."""
+    rest = dict(params)
+    rest["backbone"] = {k: v for k, v in params["backbone"].items() if k != "embedding"}
+    return params["backbone"]["embedding"], rest
+
+
+def merge_embedding(rest: Dict, emb: torch.Tensor) -> Dict:
+    params = dict(rest)
+    params["backbone"] = {**rest["backbone"], "embedding": emb}
+    return params
+
+
+def split_qhead(params: Dict, family: str) -> Tuple[Dict, Dict]:
+    """(Q-head subtree, params without it)."""
+    key = QH_KEY[family]
+    return params[key], {k: v for k, v in params.items() if k != key}
+
+
+def lazy_qhead_params(params: Dict, family: str) -> Dict:
+    """``params`` with its canonical Q head in the action-major lazy layout:
+    sqn and smorl ``{"kernel_am" (A, K*F), "bias"}``; sarm keeps head 0
+    (the CE's, densely updated) as ``kernel0``/``bias0`` and takes heads 1-4
+    as ``kernel_am`` (A, 4F) and ``bias_rest`` (4, A).
+    ``models.families.canonicalize_qheads`` is the inverse."""
+    from ikea_recommender_tpu_torch.train.lazy_adam import to_action_major
+
+    qh = params[QH_KEY[family]]
+    if family == "sarm":
+        new = {"kernel0": qh["kernel"][0].contiguous(), "bias0": qh["bias"][0].contiguous(),
+               "kernel_am": to_action_major(qh["kernel"][1:]),
+               "bias_rest": qh["bias"][1:].contiguous()}
+    else:
+        new = {"kernel_am": to_action_major(qh["kernel"]), "bias": qh["bias"]}
+    return {**params, QH_KEY[family]: new}
+
+
+def dense_part(params: Dict, family: str, lazy_emb: bool, lazy_qh: bool) -> Dict:
+    """The tree dense Adam owns on the lazy paths, sharing ``params``'
+    tensors: ``{"rest": params without the lazy leaves}``, and for sarm's
+    lazy heads ``"h0"``, its head 0."""
+    rest, qh = params, None
+    if lazy_emb:
+        rest = split_embedding(rest)[1]
+    if lazy_qh:
+        qh, rest = split_qhead(rest, family)
+    dense = {"rest": rest}
+    if lazy_qh and family == "sarm":
+        dense["h0"] = {"kernel": qh["kernel0"], "bias": qh["bias0"]}
+    return dense
+
+
+def _lazy_net_opt_state(opt: Adam, params: Dict, family: str, lazy_emb: bool, lazy_qh: bool,
+                        mv_dtype: Optional[str] = None) -> LazyAdamState:
+    """A fresh :class:`LazyAdamState` over one net's ``params``, already in
+    the action-major layout where ``lazy_qh``. ``mv_dtype`` applies to the
+    dense moments and the lazy buffers alike."""
+    from ikea_recommender_tpu_torch.train.lazy_adam import init_col_adam, init_emb_adam
+
+    dense = dense_part(params, family, lazy_emb, lazy_qh)
+    emb = qh = None
+    if lazy_emb:
+        emb = init_emb_adam(params["backbone"]["embedding"], mv_dtype)
+    if lazy_qh:
+        head = params[QH_KEY[family]]
+        b = head["bias_rest"] if family == "sarm" else head["bias"]
+        qh = init_col_adam(head["kernel_am"], b.shape[0] if b.dim() == 2 else 1, mv_dtype)
+    rest = opt.init(dense)
+    return LazyAdamState(rest, torch.zeros_like(rest.count), emb, qh)
+
+
+def make_lazy_train_state(
+    params: Dict, model_cfg, learning_rate: float, mv_dtype: Optional[str] = None,
+    seed: int = 0, device="cuda",
+) -> Tuple[TrainState, Adam]:
+    """The CE families' state with the lazy embedding Adam (``optimizer:
+    lazy_adam``) over ``params`` (tensors on ``device``), as
+    :func:`make_train_state` takes them."""
+    dev = resolve_device(device)
+    _check_params(params, model_cfg, dev)
+    opt = make_optimizer(learning_rate, mv_dtype)
+    opt_state = _lazy_net_opt_state(opt, params, model_cfg.family, True, False, mv_dtype)
+    return TrainState(params, opt_state, 0, torch.Generator(device=dev).manual_seed(seed)), opt
+
+
+def make_lazy_double_q_state(
+    params: Sequence[Dict], model_cfg, learning_rate: float, mv_dtype: Optional[str] = None,
+    *, lazy_emb: bool = False, lazy_qh: bool = False, seed: int = 0, device="cuda",
+) -> Tuple[DoubleQState, Adam]:
+    """sqn's or smorl's pair with lazy optimizer parts: ``params`` (net0,
+    net1) in the canonical layout, as :func:`make_double_q_state` takes
+    them, moved to the action-major layout where ``lazy_qh``; one
+    :class:`LazyAdamState` per net (the one-optimizer arm is dense only)."""
+    dev = resolve_device(device)
+    if len(params) != 2:
+        raise ValueError(f"a double-Q state takes two param trees, got {len(params)}")
+    fam = model_cfg.family
+    pair = []
+    for net in params:
+        _check_params(net, model_cfg, dev)
+        pair.append(lazy_qhead_params(net, fam) if lazy_qh else net)
+    opt = make_optimizer(learning_rate, mv_dtype)
+    opt_state = tuple(_lazy_net_opt_state(opt, p, fam, lazy_emb, lazy_qh, mv_dtype) for p in pair)
+    return DoubleQState(tuple(pair), opt_state, 0, torch.Generator().manual_seed(seed)), opt
+
+
+def make_lazy_sarm_state(
+    params: Dict, model_cfg, learning_rate: float, mv_dtype: Optional[str] = None,
+    *, lazy_emb: bool = False, lazy_qh: bool = False, seed: int = 0, device="cuda",
+) -> Tuple[TrainState, Adam]:
+    """sarm's state with lazy optimizer parts over canonical ``params``."""
+    dev = resolve_device(device)
+    _check_params(params, model_cfg, dev)
+    if lazy_qh:
+        params = lazy_qhead_params(params, "sarm")
+    opt = make_optimizer(learning_rate, mv_dtype)
+    opt_state = _lazy_net_opt_state(opt, params, "sarm", lazy_emb, lazy_qh, mv_dtype)
+    return TrainState(params, opt_state, 0, torch.Generator(device=dev).manual_seed(seed)), opt

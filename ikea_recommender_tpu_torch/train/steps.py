@@ -4,8 +4,11 @@ double-Q steps of sqn and smorl, and the self-bootstrapped step of sarm.
 Port of ``ikea_recommender_tpu/train/steps.py`` (``RLStepConfig``,
 ``_masked_mean``, ``_ce_loss``, ``_fused_sup_ce``, ``_apply_grad_mask``,
 ``ce_train_step``, ``_double_q_run``, ``sqn_train_step``,
-``smorl_train_step``, ``sarm_train_step``, ``TrainStep`` and
-``make_train_step``).
+``smorl_train_step``, ``sarm_train_step``, the lazy optimizers' steps
+(``LazyCfg``, ``ce_train_step_lazy``, ``_lazy_double_q_run``,
+``_lazy_diff_parts``, ``_dense_part``, ``_q_from_rows``,
+``_lazy_apply_updates`` and the three ``*_train_step_lazy``),
+``TrainStep`` and ``make_train_step``).
 
 The CE step (reference ``models/GRU4Rec/model.py:131-158``): embedding
 gather, the GRU layers (B3 forward and B4 backward on the card), the
@@ -43,6 +46,13 @@ products over column blocks; the next-state forward runs under
 ``no_grad``, so a step runs B3 twice and B4 once.
 :func:`sarm_loss_and_grads` gives the loss and gradients on their own.
 
+The lazy steps (``optimizer: lazy_adam``, ``qhead_optimizer: lazy_adam``;
+``train/lazy_adam.py``) share these losses: the embedding rows and/or the
+trained net's Q-head rows at the batch's sorted actions are gathered
+outside autograd and their gradients drive lazy Adam on those rows; dense
+Adam owns the rest. An action-major head takes B5's or B6's action-major
+form and sarm's target max ``blockwise_multihead_max_am`` for heads 1-4.
+
 Batches are dicts of arrays: ``state`` (B, T) int, ``action`` (B,) int,
 ``true_len`` (B,) int and ``valid`` (B,) bool, the mask of a padded tail
 batch; the double-Q and sarm steps also read ``reward`` (B,) float,
@@ -66,7 +76,9 @@ from ikea_recommender_tpu_torch.models.families import (
     ModelConfig,
     apply_features,
     apply_model,
+    mask_pad_logits,
 )
+from ikea_recommender_tpu_torch.models.heads import linear_apply
 from ikea_recommender_tpu_torch.ops.fused_argmax import (
     fused_linear_argmax,
     fused_weighted_multihead_argmax,
@@ -74,7 +86,11 @@ from ikea_recommender_tpu_torch.ops.fused_argmax import (
     row_logit,
 )
 from ikea_recommender_tpu_torch.ops.fused_ce import fused_softmax_ce, fused_softmax_ce_topk
-from ikea_recommender_tpu_torch.ops.fused_topk import blockwise_multihead_max, topk_lowest_id
+from ikea_recommender_tpu_torch.ops.fused_topk import (
+    blockwise_multihead_max,
+    blockwise_multihead_max_am,
+    topk_lowest_id,
+)
 from ikea_recommender_tpu_torch.ops.rewards import diversity_from_topk, novelty_from_topk
 from ikea_recommender_tpu_torch.ops.rl import (
     gather_from_3d,
@@ -82,7 +98,21 @@ from ikea_recommender_tpu_torch.ops.rl import (
     get_weighted_q_target,
     weighted_q_loss,
 )
-from ikea_recommender_tpu_torch.train.state import Adam, DoubleQState, TrainState
+from ikea_recommender_tpu_torch.train.lazy_adam import (
+    emb_adam_update,
+    gather_qhead_rows,
+    q_from_rows,
+    qhead_row_adam_update,
+    sort_batch_ids,
+)
+from ikea_recommender_tpu_torch.train.state import (
+    QH_KEY,
+    Adam,
+    DoubleQState,
+    LazyAdamState,
+    TrainState,
+    dense_part,
+)
 
 @dataclass(frozen=True)
 class RLStepConfig:
@@ -147,19 +177,31 @@ def loss_and_grads(
     params' layout with the pad row's gradient masked. ``generator`` draws
     the dropout mask (needed only when ``model_cfg.backbone.dropout > 0``)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    deterministic = model_cfg.backbone.dropout == 0.0
-    kw = dict(dropout_generator=generator, deterministic=deterministic)
     with torch.enable_grad():
-        if model_cfg.fused_ce:
-            h = apply_features(leaves, model_cfg, batch["state"], batch["true_len"], **kw)
-            loss = _fused_sup_ce(leaves, model_cfg, h, batch["action"], batch["valid"])
-        else:
-            logits = apply_model(leaves, model_cfg, batch["state"], batch["true_len"], **kw)[0]
-            loss = _ce_loss(logits, batch["action"], batch["valid"])
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-    return loss.detach(), _apply_grad_mask(tree_unflatten(leaves, grads), model_cfg)
+        loss = _sup_ce_loss(leaves, batch, model_cfg, generator)
+        grads = _grads(loss, leaves)
+    return loss.detach(), _apply_grad_mask(grads, model_cfg)
+
+
+def _sup_ce_loss(params, batch, model_cfg: ModelConfig, generator, x_emb=None):
+    """The CE families' masked-mean CE; ``x_emb`` (B, T, E) replaces the
+    table gather (the lazy embedding's rows)."""
+    kw = dict(dropout_generator=generator, deterministic=model_cfg.backbone.dropout == 0.0,
+              inputs_embeds=x_emb)
+    h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
+    if model_cfg.fused_ce:
+        return _fused_sup_ce(params, model_cfg, h, batch["action"], batch["valid"])
+    logits = mask_pad_logits(model_cfg, linear_apply(params["sup_head"], h))
+    return _ce_loss(logits, batch["action"], batch["valid"])
+
+
+def _grads(loss: torch.Tensor, leaves) -> Dict:
+    """d loss / d leaves in ``leaves``' layout, zeros where it does not
+    reach."""
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return tree_unflatten(leaves, [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(flat, grads)])
 
 
 def ce_train_step(
@@ -176,23 +218,51 @@ def ce_train_step(
     return state, {"sup_loss": loss, "q_loss": torch.zeros_like(loss)}
 
 
-def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux):
+def _q_at(h, head, idx, lz=None) -> torch.Tensor:
+    """(B, K) Q values of ``head`` at the actions ``idx``: from the lazy
+    step's sorted rows of the trained head (``lz["rows"]``, taken back to
+    batch order, so their gradient lands on the sorted rows), as a row
+    gather of an action-major head, or as a column gather of a canonical
+    one."""
+    if lz is not None and "rows" in lz:
+        w_rows, b_cols, inv = lz["rows"]
+        return q_from_rows(h, w_rows[inv], b_cols[:, inv])
+    if "kernel_am" in head:
+        b = head["bias"]
+        return q_from_rows(h, *gather_qhead_rows(head["kernel_am"], b, idx,
+                                                 b.shape[0] if b.dim() == 2 else 1))
+    if head["kernel"].dim() == 2:
+        return row_logit(h, head["kernel"], head["bias"], idx)[:, None]
+    return multihead_row_logit(h, head["kernel"], head["bias"], idx)
+
+
+def _kernel(head) -> Tuple[torch.Tensor, bool]:
+    """(W, action_major) of a canonical or action-major head, for B5/B6."""
+    return (head["kernel_am"], True) if "kernel_am" in head else (head["kernel"], False)
+
+
+def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz=None):
     """(total, sup_loss, q_loss, target action) of the sqn step with
-    ``p_main`` the trained net."""
+    ``p_main`` the trained net. On the lazy paths ``lz`` holds the
+    embedding rows (``x_emb``) and/or the trained head's sorted rows
+    (``rows``) that autograd differentiates; an action-major head takes
+    B5's action-major form."""
     boot_len = batch["true_len"] if rl.compat_boot_len_bug else batch["true_next_len"]
     not_end = 1.0 - batch["is_end"].to(torch.float32)
     if cfg.fused_ce:
-        h = apply_features(p_main, cfg, batch["state"], batch["true_len"])
+        h = apply_features(p_main, cfg, batch["state"], batch["true_len"],
+                           inputs_embeds=None if lz is None else lz.get("x_emb"))
         sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"])
         qh, qb = p_main["q_head"], p_boot["q_head"]
-        q = row_logit(h, qh["kernel"], qh["bias"], batch["action"])
+        q = _q_at(h, qh, batch["action"], lz)[:, 0]
         with torch.no_grad():
             h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"])
+            w, am = _kernel(qh)
             max_a_next = fused_linear_argmax(
-                h_next, qh["kernel"], qh["bias"], cfg.action_dim, cfg.head_precision
+                h_next, w, qh["bias"], cfg.action_dim, cfg.head_precision, action_major=am
             )
             h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len)
-            q_next_boot = row_logit(h_next_boot, qb["kernel"], qb["bias"], max_a_next)
+            q_next_boot = _q_at(h_next_boot, qb, max_a_next)[:, 0]
     else:
         sup, q_out = apply_model(p_main, cfg, batch["state"], batch["true_len"])
         sup_loss = _ce_loss(sup, batch["action"], batch["valid"])
@@ -210,11 +280,12 @@ def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux):
     return q_loss + sup_loss, sup_loss, q_loss, max_a_next
 
 
-def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux):
+def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz=None):
     """(total, sup_loss, q_loss, target action) of the smorl step with
     ``p_main`` the trained net: K reward heads, the accuracy reward from the
     batch and the diversity and novelty rewards from the supervised head's
-    top-k (no gradient)."""
+    top-k (no gradient). ``lz`` as :func:`_sqn_loss`'s; an action-major
+    head takes B6's action-major form."""
     K = cfg.num_q_heads
     w = aux["q_weights"]
     boot_len = batch["true_len"] if rl.compat_boot_len_bug else batch["true_next_len"]
@@ -224,7 +295,8 @@ def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux):
     k_need = max(rl.topk_div if K >= 2 else 0, rl.topk_nov if K >= 3 else 0)
     top_i = None
     if cfg.fused_ce:
-        h = apply_features(p_main, cfg, batch["state"], batch["true_len"])
+        h = apply_features(p_main, cfg, batch["state"], batch["true_len"],
+                           inputs_embeds=None if lz is None else lz.get("x_emb"))
         sh = p_main["sup_head"]
         if k_need:
             per_ce, top_i = fused_softmax_ce_topk(
@@ -235,14 +307,15 @@ def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux):
         else:
             sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"])
         qh, qb = p_main["q_heads"], p_boot["q_heads"]
-        q = multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"])  # (B, K)
+        q = _q_at(h, qh, batch["action"], lz)  # (B, K)
         with torch.no_grad():
             h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"])
+            wk, am = _kernel(qh)
             max_a_next = fused_weighted_multihead_argmax(
-                h_next, qh["kernel"], qh["bias"], w, cfg.action_dim, cfg.head_precision
+                h_next, wk, qh["bias"], w, cfg.action_dim, cfg.head_precision, action_major=am
             )
             h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len)
-            q_next_boot = multihead_row_logit(h_next_boot, qb["kernel"], qb["bias"], max_a_next)
+            q_next_boot = _q_at(h_next_boot, qb, max_a_next)
     else:
         sup, q_all = apply_model(p_main, cfg, batch["state"], batch["true_len"])
         sup_loss = _ce_loss(sup, batch["action"], batch["valid"])
@@ -293,11 +366,22 @@ def double_q_loss_and_grads(
         total, sup_loss, q_loss, target = loss_fn(
             leaves, params[1 - main], batch, model_cfg, rl, aux
         )
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(total, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        grads = _grads(total, leaves)
     metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach(), "target_action": target}
-    return metrics, _apply_grad_mask(tree_unflatten(leaves, grads), model_cfg)
+    return metrics, _apply_grad_mask(grads, model_cfg)
+
+
+def _main_net(state, model_cfg: ModelConfig, coin: Optional[int]) -> int:
+    """This step's main net: ``coin`` when given, else the state
+    generator's draw; the generator advances one draw either way."""
+    if not isinstance(state, DoubleQState):
+        raise TypeError(f"the {model_cfg.family} step takes a DoubleQState, got {type(state).__name__}")
+    drawn = int(torch.randint(0, 2, (), generator=state.generator))
+    if coin is None:
+        coin = drawn
+    if coin not in (0, 1):
+        raise ValueError(f"coin must be 0 or 1, got {coin!r}")
+    return int(coin)
 
 
 def double_q_train_step(
@@ -316,14 +400,7 @@ def double_q_train_step(
     optimizers only the main net's params and moments move; with one over
     the pair the other net takes zero gradients and still moves under its
     moments, as in the reference."""
-    if not isinstance(state, DoubleQState):
-        raise TypeError(f"the {model_cfg.family} step takes a DoubleQState, got {type(state).__name__}")
-    drawn = int(torch.randint(0, 2, (), generator=state.generator))
-    if coin is None:
-        coin = drawn
-    if coin not in (0, 1):
-        raise ValueError(f"coin must be 0 or 1, got {coin!r}")
-    main = int(coin)
+    main = _main_net(state, model_cfg, coin)
     metrics, grads = double_q_loss_and_grads(state.params, batch, model_cfg, rl, main, aux)
     if rl.single_optimizer:
         zeros = tree_map(torch.zeros_like, state.params[1 - main])
@@ -335,24 +412,44 @@ def double_q_train_step(
     return state, metrics
 
 
-def _sarm_loss(params, batch, cfg: ModelConfig, rl: RLStepConfig):
+def _sarm_loss(params, batch, cfg: ModelConfig, rl: RLStepConfig, lz=None):
     """(total, sup_loss, q_loss) of the sarm step: the CE on head 0 plus
-    the mean over the heads of each head's masked-mean TD loss."""
+    the mean over the heads of each head's masked-mean TD loss. On the lazy
+    Q-head layout head 0 is ``kernel0`` (dense: the CE's gradient reaches
+    every column) and heads 1-4 are action-major rows: Q(s, a) their sorted
+    rows from ``lz``, the target max :func:`blockwise_multihead_max` on
+    head 0 joined with :func:`blockwise_multihead_max_am` on the rest."""
     not_end = 1.0 - batch["is_end"].to(torch.float32)
     if cfg.fused_ce:
-        h = apply_features(params, cfg, batch["state"], batch["true_len"])
+        h = apply_features(params, cfg, batch["state"], batch["true_len"],
+                           inputs_embeds=None if lz is None else lz.get("x_emb"))
         qh = params["q_heads"]
+        lazy_qh = "kernel0" in qh
+        k0, b0 = (qh["kernel0"], qh["bias0"]) if lazy_qh else (qh["kernel"][0], qh["bias"][0])
         per = fused_softmax_ce(
-            h.to(torch.float32), qh["kernel"][0], qh["bias"][0], batch["action"],
-            cfg.action_dim, cfg.head_precision,
+            h.to(torch.float32), k0, b0, batch["action"], cfg.action_dim, cfg.head_precision,
         )
         sup_loss = _masked_mean(per, batch["valid"])
-        q = multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"])  # (B, 5)
+        rest = {"kernel_am": qh["kernel_am"], "bias": qh["bias_rest"]} if lazy_qh else None
+        if lazy_qh:
+            q = torch.cat([row_logit(h, k0, b0, batch["action"])[:, None],
+                           _q_at(h, rest, batch["action"], lz)], dim=1)
+        else:
+            q = multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"])  # (B, 5)
         with torch.no_grad():
             h_next = apply_features(params, cfg, batch["next_state"], batch["true_next_len"])
-            q_next = blockwise_multihead_max(
-                h_next, qh["kernel"], qh["bias"], cfg.action_dim, precision=cfg.head_precision
-            )  # (B, 5)
+            if lazy_qh:
+                q_next = torch.cat([
+                    blockwise_multihead_max(h_next, k0[None], b0[None], cfg.action_dim,
+                                            precision=cfg.head_precision),
+                    blockwise_multihead_max_am(h_next, rest["kernel_am"], rest["bias"],
+                                               cfg.action_dim, precision=cfg.head_precision),
+                ], dim=1)
+            else:
+                q_next = blockwise_multihead_max(
+                    h_next, qh["kernel"], qh["bias"], cfg.action_dim,
+                    precision=cfg.head_precision
+                )  # (B, 5)
     else:
         outs = apply_model(params, cfg, batch["state"], batch["true_len"])
         sup_loss = _ce_loss(outs[0], batch["action"], batch["valid"])
@@ -378,11 +475,9 @@ def sarm_loss_and_grads(
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         total, sup_loss, q_loss = _sarm_loss(leaves, batch, model_cfg, rl)
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(total, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        grads = _grads(total, leaves)
     metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach()}
-    return metrics, _apply_grad_mask(tree_unflatten(leaves, grads), model_cfg)
+    return metrics, _apply_grad_mask(grads, model_cfg)
 
 
 def sarm_train_step(
@@ -396,6 +491,189 @@ def sarm_train_step(
     returns it with the step advanced, and the metrics."""
     metrics, grads = sarm_loss_and_grads(state.params, batch, model_cfg, rl)
     opt.update(grads, state.opt_state, state.params)
+    state.step += 1
+    return state, metrics
+
+
+# ---------------------------------------------------------------------------
+# The lazy optimizers' steps (train/lazy_adam.py; reference
+# ``ce_train_step_lazy``, ``_lazy_double_q_run``, ``_lazy_diff_parts``,
+# ``_dense_part``, ``_q_from_rows``, ``_lazy_apply_updates`` and the three
+# ``*_train_step_lazy``)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LazyCfg:
+    """Which parts take lazy Adam, at which learning rate."""
+
+    emb_lr: Optional[float] = None  # lazy-row embedding Adam
+    qh_lr: Optional[float] = None  # lazy-row Q-head Adam, action-major
+
+    @property
+    def on(self) -> bool:
+        return self.emb_lr is not None or self.qh_lr is not None
+
+
+def _lazy_diff(p: Dict, family: str, lazy: LazyCfg, batch) -> Tuple[Dict, Dict]:
+    """(diff, pieces) of one net on the lazy paths. ``diff`` holds the
+    leaves autograd differentiates, fresh: ``dense`` (the tree dense Adam
+    owns, ``train.state.dense_part``), and the rows gathered outside
+    autograd whose gradients drive the sparse updates: ``x_emb`` (B, T, E)
+    embedding rows, and ``w_rows`` (B, K, F) / ``b_cols`` (K, B) of the Q
+    head at the batch's actions in sorted order. ``pieces`` keeps the
+    sorted ids, the inverse permutation and the gathered rows."""
+    lazy_emb, lazy_qh = lazy.emb_lr is not None, lazy.qh_lr is not None
+    dense = dense_part(p, family, lazy_emb, lazy_qh)
+    diff = {"dense": tree_map(lambda t: t.detach().requires_grad_(), dense)}
+    pieces: Dict = {}
+    if lazy_emb:
+        diff["x_emb"] = p["backbone"]["embedding"][batch["state"].long()].detach().requires_grad_()
+    if lazy_qh:
+        qh = p[QH_KEY[family]]
+        b = qh["bias_rest"] if family == "sarm" else qh["bias"]
+        sids, inv = sort_batch_ids(batch["action"])
+        w_rows, b_cols = gather_qhead_rows(qh["kernel_am"], b, sids,
+                                           b.shape[0] if b.dim() == 2 else 1)
+        diff["w_rows"] = w_rows.detach().requires_grad_()
+        diff["b_cols"] = b_cols.detach().requires_grad_()
+        pieces = {"sids": sids, "inv": inv, "w_rows": w_rows, "b_cols": b_cols}
+    return diff, pieces
+
+
+def _lazy_view(p: Dict, diff: Dict, pieces: Dict, family: str) -> Tuple[Dict, Dict]:
+    """(params, lz) for the loss functions: ``p`` with its dense leaves
+    replaced by ``diff``'s (the embedding table and the action-major head
+    stay as they are, read without gradient by the next-state forwards, B5,
+    B6 and the target max), and ``lz``: the differentiated rows, ``x_emb``
+    and ``rows`` (the head's sorted rows and the permutation back to batch
+    order)."""
+    dense = diff["dense"]
+    view = dict(dense["rest"])
+    lz: Dict = {}
+    if "x_emb" in diff:
+        view["backbone"] = {**view["backbone"], "embedding": p["backbone"]["embedding"]}
+        lz["x_emb"] = diff["x_emb"]
+    if "w_rows" in diff:
+        key = QH_KEY[family]
+        view[key] = dict(p[key])
+        if family == "sarm":
+            view[key].update(kernel0=dense["h0"]["kernel"], bias0=dense["h0"]["bias"])
+        lz["rows"] = (diff["w_rows"], diff["b_cols"], pieces["inv"])
+    return view, lz
+
+
+def _lazy_grads(total, diff, lazy: LazyCfg, model_cfg: ModelConfig) -> Dict:
+    grads = _grads(total, diff)
+    if lazy.emb_lr is None:  # the table is dense: its pad row's gradient masked
+        grads["dense"]["rest"] = _apply_grad_mask(grads["dense"]["rest"], model_cfg)
+    return grads
+
+
+def lazy_apply_updates(p: Dict, grads: Dict, pieces: Dict, opt_state: LazyAdamState, opt: Adam,
+                       family: str, model_cfg: ModelConfig, lazy: LazyCfg, batch) -> None:
+    """Dense Adam on the dense part, lazy Adam on the touched embedding rows
+    and/or Q-head rows (bias-corrected with the net's count before this
+    update), in place; then the count advances."""
+    lazy_emb, lazy_qh = lazy.emb_lr is not None, lazy.qh_lr is not None
+    opt.update(grads["dense"], opt_state.rest, dense_part(p, family, lazy_emb, lazy_qh))
+    if lazy_emb:
+        bb = model_cfg.backbone
+        g_x = grads["x_emb"]
+        emb_adam_update(p["backbone"]["embedding"], opt_state.emb, batch["state"].reshape(-1),
+                        g_x.reshape(-1, g_x.shape[-1]), opt_state.count, lazy.emb_lr,
+                        frozen_row=None if bb.train_pad_embed else bb.padding_idx)
+    if lazy_qh:
+        qh = p[QH_KEY[family]]
+        qhead_row_adam_update(
+            qh["kernel_am"], qh["bias_rest"] if family == "sarm" else qh["bias"], opt_state.qh,
+            pieces["sids"], grads["w_rows"], grads["b_cols"], opt_state.count, lazy.qh_lr,
+            w_rows=pieces["w_rows"], b_cols=pieces["b_cols"],
+        )
+    opt_state.count += 1
+
+
+def lazy_loss_and_grads(params: Dict, batch, model_cfg: ModelConfig, lazy: LazyCfg,
+                        rl: Optional[RLStepConfig] = None, generator=None, *, boot=None,
+                        aux: Optional[Dict] = None) -> Tuple[Dict, Dict, Dict]:
+    """(metrics, grads, pieces) of one net's lazy step: the CE families'
+    (``generator`` draws dropout), sarm's, or with ``boot`` (the other net
+    of the pair) sqn's and smorl's. ``grads`` is in ``_lazy_diff``'s
+    layout: ``dense`` (with the pad row's gradient masked where the table
+    is dense), ``x_emb``, ``w_rows``, ``b_cols``."""
+    fam = model_cfg.family
+    diff, pieces = _lazy_diff(params, fam, lazy, batch)
+    view, lz = _lazy_view(params, diff, pieces, fam)
+    with torch.enable_grad():
+        if fam in ("gru4rec", "bidir_gru4rec"):
+            sup_loss = total = _sup_ce_loss(view, batch, model_cfg, generator, lz.get("x_emb"))
+            metrics = {"sup_loss": sup_loss.detach(), "q_loss": torch.zeros_like(sup_loss)}
+        elif fam == "sarm":
+            total, sup_loss, q_loss = _sarm_loss(view, batch, model_cfg, rl, lz)
+            metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach()}
+        else:
+            loss_fn = _sqn_loss if fam == "sqn" else _smorl_loss
+            total, sup_loss, q_loss, target = loss_fn(view, boot, batch, model_cfg, rl, aux, lz)
+            metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach(),
+                       "target_action": target}
+        grads = _lazy_grads(total, diff, lazy, model_cfg)
+    return metrics, grads, pieces
+
+
+def ce_train_step_lazy(state: TrainState, batch, model_cfg: ModelConfig, opt: Adam,
+                       lr: float) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The CE step with lazy embedding Adam (``optimizer: lazy_adam``): the
+    table's rows are gathered outside autograd, and only the touched rows'
+    param and moments are read or written; dense Adam owns the rest."""
+    lazy = LazyCfg(emb_lr=lr)
+    metrics, grads, pieces = lazy_loss_and_grads(state.params, batch, model_cfg, lazy,
+                                                 generator=state.generator)
+    lazy_apply_updates(state.params, grads, pieces, state.opt_state, opt, model_cfg.family,
+                       model_cfg, lazy, batch)
+    state.step += 1
+    return state, metrics
+
+
+def lazy_double_q_train_step(state: DoubleQState, batch, model_cfg: ModelConfig, opt: Adam,
+                             rl: RLStepConfig, aux: Dict, lazy: LazyCfg,
+                             coin: Optional[int] = None):
+    """One sqn or smorl step with lazy embedding rows and/or lazy
+    action-major Q-head rows: the loss of :func:`double_q_train_step`, the
+    coin drawn the same way. Only the main net moves. The reference writes
+    the other net's gathered rows back unchanged (``selected=False``, an
+    identity write kept out of its ``lax.cond``); skipping that net leaves
+    it bit for bit the same, since ``w - 0.0`` is ``w`` and a moment cast to
+    fp32 and back to bf16 is unchanged. Only the main net's count
+    advances."""
+    main = _main_net(state, model_cfg, coin)
+    p_main = state.params[main]
+    metrics, grads, pieces = lazy_loss_and_grads(p_main, batch, model_cfg, lazy, rl,
+                                                 boot=state.params[1 - main], aux=aux)
+    lazy_apply_updates(p_main, grads, pieces, state.opt_state[main], opt, model_cfg.family,
+                       model_cfg, lazy, batch)
+    state.step += 1
+    return state, metrics
+
+
+def sqn_train_step_lazy(state, batch, model_cfg, opt, rl, lazy, coin=None):
+    """The sqn step with lazy parts (reference ``sqn_train_step_lazy``)."""
+    return lazy_double_q_train_step(state, batch, model_cfg, opt, rl, {}, lazy, coin)
+
+
+def smorl_train_step_lazy(state, batch, model_cfg, opt, rl, lazy, aux, coin=None):
+    """The smorl step with lazy parts (reference ``smorl_train_step_lazy``);
+    ``aux`` as :func:`make_train_step` prepares it."""
+    return lazy_double_q_train_step(state, batch, model_cfg, opt, rl, aux, lazy, coin)
+
+
+def sarm_train_step_lazy(state: TrainState, batch, model_cfg: ModelConfig, opt: Adam,
+                         rl: RLStepConfig, lazy: LazyCfg):
+    """The sarm step with lazy embedding rows and/or lazy Q-head rows: head
+    0 stays under dense Adam (the ``h0`` leaf), heads 1-4 take lazy rows.
+    The loss of :func:`sarm_train_step`."""
+    metrics, grads, pieces = lazy_loss_and_grads(state.params, batch, model_cfg, lazy, rl)
+    lazy_apply_updates(state.params, grads, pieces, state.opt_state, opt, "sarm", model_cfg,
+                       lazy, batch)
     state.step += 1
     return state, metrics
 
@@ -439,20 +717,35 @@ def make_train_step(
     ``RLStepConfig()``. smorl needs ``div_embedding`` (V_in, E), the frozen
     embedding of the diversity reward, and ``unpopular_mask`` (A,) bool;
     ``out_to_in`` (A,) maps output ids to input ids for the diversity reward.
-    They are arrays or tensors and are copied to the device once. The lazy
-    optimizers and ``mesh`` raise, naming their ROADMAP item."""
+    They are arrays or tensors and are copied to the device once.
+
+    ``lazy_embedding_lr``: lazy embedding Adam at this learning rate;
+    ``lazy_qhead_lr``: lazy action-major Q-head Adam (sqn, smorl, sarm).
+    Both take the states of the matching lazy builders
+    (``train/state.py``); on the Q families they need the fused path and
+    two optimizers. ``mesh`` raises, naming its ROADMAP item."""
     dev = resolve_device(device)
     fam = model_cfg.family
     rl = RLStepConfig() if rl is None else rl
-    if lazy_embedding_lr is not None or lazy_qhead_lr is not None:
-        raise NotImplementedError(
-            "lazy optimizers come with the presets and lazy-optimizers slice (ROADMAP A.8)"
-        )
+    lazy = LazyCfg(emb_lr=lazy_embedding_lr, qh_lr=lazy_qhead_lr)
+    if lazy_qhead_lr is not None and fam not in QH_KEY:
+        raise ValueError("qhead_optimizer='lazy_adam' needs a Q family")
     if mesh is not None:
         raise NotImplementedError("a mesh comes with the multi-GPU slice (ROADMAP A.9)")
+    if lazy.on and fam in QH_KEY:
+        if not model_cfg.fused_ce:
+            raise ValueError("lazy optimizers require the fused train path")
+        if rl.single_optimizer and fam != "sarm":
+            raise ValueError("lazy optimizers need double_q_optimizers=2")
     if fam in ("gru4rec", "bidir_gru4rec"):
+        if lazy.on:
+            return TrainStep(lambda state, batch: ce_train_step_lazy(
+                state, batch, model_cfg, opt, lazy_embedding_lr), dev)
         return TrainStep(lambda state, batch: ce_train_step(state, batch, model_cfg, opt), dev)
     if fam == "sarm":
+        if lazy.on:
+            return TrainStep(lambda state, batch: sarm_train_step_lazy(
+                state, batch, model_cfg, opt, rl, lazy), dev)
         return TrainStep(
             lambda state, batch: sarm_train_step(state, batch, model_cfg, opt, rl), dev
         )
@@ -469,6 +762,12 @@ def make_train_step(
             "unpopular_mask": torch.as_tensor(unpopular_mask, device=dev).to(torch.bool),
             "out_to_in": None if out_to_in is None else torch.as_tensor(out_to_in, device=dev),
         }
+    if lazy.on and fam == "sqn":
+        return TrainStep(lambda state, batch, coin=None: sqn_train_step_lazy(
+            state, batch, model_cfg, opt, rl, lazy, coin), dev, aux)
+    if lazy.on:
+        return TrainStep(lambda state, batch, coin=None: smorl_train_step_lazy(
+            state, batch, model_cfg, opt, rl, lazy, aux, coin), dev, aux)
     return TrainStep(
         lambda state, batch, coin=None: double_q_train_step(
             state, batch, model_cfg, opt, rl, aux, coin

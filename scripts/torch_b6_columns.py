@@ -56,7 +56,7 @@ def build_forced(cols):
 def bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn, scratch = lib.fused_argmax, lib.fused_argmax_scratch
-    fn.argtypes, fn.restype = [ptr] * 8 + [i32] * 6 + [ptr], i32
+    fn.argtypes, fn.restype = [ptr] * 8 + [i32] * 7 + [ptr], i32
     scratch.argtypes, scratch.restype = [i32] * 6, ctypes.c_longlong
     return fn, scratch
 
@@ -73,7 +73,7 @@ def runner(fns, h, w, b, q, precision):
     def run():
         err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(), idx.data_ptr(),
                  mx.data_ptr(), part_max.data_ptr(), part_idx.data_ptr(), B, F, A, K, A, p,
-                 torch.cuda.current_stream().cuda_stream)
+                 0, torch.cuda.current_stream().cuda_stream)  # 0: the canonical layout
         if err != 0:
             raise SystemExit(f"fused_argmax failed with CUDA error {err}")
         return idx, mx

@@ -251,9 +251,10 @@ def test_cpu_tensors_take_the_twins():
 
 def test_wrappers_reject_bad_inputs():
     h, w, b = (torch.tensor(a) for a in _head(4, 8, 32, seed=0))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        fused_argmax.fused_linear_argmax(h, w.T.contiguous(), b, 32, action_major=True)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    # the action-major forms take (A, F) and (A, K F), not the canonical W
+    with pytest.raises(ValueError, match="action-major"):
+        fused_argmax.fused_linear_argmax(h, w, b, 32, action_major=True)
+    with pytest.raises(ValueError, match="action-major"):
         fused_argmax.fused_weighted_multihead_argmax(h, w[None], b[None], [1.0], 32,
                                                      action_major=True)
     with pytest.raises(ValueError, match="precision"):

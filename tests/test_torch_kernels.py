@@ -18,13 +18,14 @@ in expf/tanhf against torch's exp/sigmoid/tanh. Tolerances:
   term lands (~1e-6 at the train point, against ~1e-2 at a label); in
   "default" at the gru4rec and bidir train points and at F = 200 and 250
   that dW is held to one bf16 step (DW_OFF_LABEL_TOL);
-- B5/B6 (fused_argmax): the max within 1e-5 of the twin's largest |max|
-  everywhere; ids equal wherever the twin's top two values differ by more
+- B5/B6 (fused_argmax), canonical and action-major: the max within 1e-5
+  of the twin's largest |max| everywhere; ids equal wherever the twin's top two values differ by more
   than that (the rows excluded are counted and must be few). On inputs of
   small integers every sum is exact in any order, so there the ids, ties
   included, must be equal everywhere and the lowest of the tied ids; on
   data whose weighted head sum rounds differently in head order than with
   q folded into W, B6's ids and maxima must equal the twin's bit for bit;
+  the action-major forms equal the canonical forms bit for bit;
 - the eval protocol (B3 in its backbone) on the card against the CPU: on
   rows whose top-21 scores are more than 1e-5 apart, HR, repetitions and
   coverage equal, NDCG within 1e-6, the loss and rewards within 1e-5.
@@ -508,9 +509,90 @@ def test_fused_wargmax_sums_heads_in_order(cuda_device, precision):
     assert (folded.argmax(axis=1) != idx.cpu().numpy()).any()
 
 
+ARGMAX_AM_SHAPES = [  # B5 and B6 on the action-major W: (A, F) and (A, K F)
+    (256, 64, 70852, 70852, None, "default", False),  # the sqn fast point
+    (256, 64, 70852, 70852, 3, "default", False),  # the smorl fast point
+    (256, 64, 70852, 70852, None, "high", False),
+    (256, 64, 70852, 70852, 3, "highest", False),
+    (256, 64, 70912, 70852, 3, "high", True),  # padded rows, NaN in them
+    (256, 90, 70852, 70852, 3, "default", False),  # F % 4 != 0: 4-byte copies
+    (37, 24, 1000, 777, 2, "default", True),  # odd sizes
+    (300, 128, 4096, 3000, 5, "high", True),  # the most B6 takes: 32-column blocks
+    (70, 128, 300, 300, 5, "highest", False),
+    (1, 64, 70852, 70852, None, "high", False),  # one row
+]
+
+
+def _action_major(w, K):
+    """The same head values in the lazy optimizers' layout: (A, F) for B5,
+    (A, K F) for B6."""
+    return w.reshape(-1, w.shape[-1]).T.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,A,valid,K,precision,nan_tail", ARGMAX_AM_SHAPES)
+def test_fused_argmax_action_major_matches_twin(cuda_device, B, F, A, valid, K, precision,
+                                                nan_tail):
+    """The action-major forms against their twins as the canonical ones
+    are held, counted apart, giving the canonical form's bits on the same
+    values, bit for bit over two launches."""
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, nan_tail, cuda_device, seed=5)
+    w_am = _action_major(w, K)
+    counter = "AM_LAUNCHES" if K is None else "WEIGHTED_AM_LAUNCHES"
+    before = (getattr(fused_argmax, counter), fused_argmax.LAUNCHES,
+              fused_argmax.WEIGHTED_LAUNCHES)
+    kw = dict(with_max=True, action_major=True)
+    if K is None:
+        idx, mx = fused_argmax.fused_linear_argmax(h, w_am, b, valid, precision, **kw)
+        again = fused_argmax.fused_linear_argmax(h, w_am, b, valid, precision, **kw)
+    else:
+        idx, mx = fused_argmax.fused_weighted_multihead_argmax(h, w_am, b, q, valid, precision,
+                                                               **kw)
+        again = fused_argmax.fused_weighted_multihead_argmax(h, w_am, b, q, valid, precision,
+                                                             **kw)
+    torch.cuda.synchronize()
+    assert (getattr(fused_argmax, counter), fused_argmax.LAUNCHES,
+            fused_argmax.WEIGHTED_LAUNCHES) == (before[0] + 2, before[1], before[2])
+    assert torch.equal(idx, again[0]) and torch.equal(mx, again[1])
+    v = fused_argmax.head_values_plain(h, w_am, b, valid, precision, q, action_major=True)
+    idx_p, mx_p = v.argmax(dim=1), v.amax(dim=1)
+    top2 = v.topk(2, dim=1).values
+    assert torch.isfinite(mx).all() and (idx < valid).all()
+    scale = mx_p.abs().max().item()
+    assert (mx - mx_p).abs().max().item() <= 1e-5 * scale
+    clear = top2[:, 0] - top2[:, 1] > 1e-5 * scale
+    assert (~clear).sum().item() <= max(2, B // 50)
+    assert torch.equal(idx[clear], idx_p[clear])
+    canon = _run_argmax(h, w, b, q, valid, precision)
+    assert torch.equal(idx, canon[0]) and torch.equal(mx, canon[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 3])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_fused_argmax_action_major_exact_ties(cuda_device, K, precision):
+    """The exact ties of test_fused_argmax_exact_ties on the action-major W:
+    the lowest id, 127, wins."""
+    B, F, A, valid = 256, 64, 70912, 70852
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, True, cuda_device, integer=True, seed=3)
+    for col in (128, valid - 1):
+        w[..., col] = w[..., 127]
+        b[..., col] = b[..., 127]
+    b[..., 127] = b[..., 128] = b[..., valid - 1] = 1000.0
+    w_am = _action_major(w, K)
+    if K is None:
+        idx = fused_argmax.fused_linear_argmax(h, w_am, b, valid, precision, action_major=True)
+    else:
+        idx = fused_argmax.fused_weighted_multihead_argmax(h, w_am, b, q, valid, precision,
+                                                           action_major=True)
+    torch.cuda.synchronize()
+    assert (idx == 127).all()
+
+
 def _launch_counts():
     return (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES, fused_argmax.LAUNCHES,
-            fused_argmax.WEIGHTED_LAUNCHES)
+            fused_argmax.WEIGHTED_LAUNCHES, fused_argmax.AM_LAUNCHES,
+            fused_argmax.WEIGHTED_AM_LAUNCHES)
 
 
 @pytest.mark.cuda

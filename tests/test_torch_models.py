@@ -92,14 +92,30 @@ def test_numpy_init_matches_reference_shapes():
 @pytest.mark.parametrize("model,head,key", [("sqn", "q_head", "kernel_am"),
                                             ("sarm", "q_heads", "kernel0")])
 def test_lazy_action_major_heads_raise(model, head, key):
-    mc, _ = _configs(model=model)
-    params = params_from_numpy(numpy_init_params(mc, 0), "cpu")
-    params[head] = {key: params[head]["kernel"], "bias": params[head]["bias"]}
+    """The lazy optimizers' action-major layout (``kernel_am``, and sarm's
+    ``kernel0``) gives the canonical layout's outputs through
+    ``canonicalize_qheads``, the dense forward and ``eval_head``, and the
+    reference's canonicalization gives the same tree."""
+    from ikea_recommender_tpu.train import state as jax_state
+    from ikea_recommender_tpu_torch.train.state import lazy_qhead_params
+
+    mc, jmc = _configs(model=model)
+    np_params = numpy_init_params(mc, 0)
+    params = params_from_numpy(np_params, "cpu")
+    lazy = lazy_qhead_params(params, model)
+    assert key in lazy[head]
+    canon = families.canonicalize_qheads(lazy, mc)
+    want = jax_families.canonicalize_qheads(
+        jax_state.lazy_qhead_params(as_jax_tree(np_params), model), jmc)
+    for name in ("kernel", "bias"):
+        assert torch.equal(canon[head][name], params[head][name])
+        np.testing.assert_array_equal(canon[head][name].numpy(), np.asarray(want[head][name]))
     states, lens = _batch(0)
-    with pytest.raises(NotImplementedError, match="lazy"):
-        families.apply_model(params, mc, torch.tensor(states), torch.tensor(lens))
-    with pytest.raises(NotImplementedError, match="lazy"):
-        eval_head(params, mc, head_idx=1)
+    got = families.apply_model(lazy, mc, torch.tensor(states), torch.tensor(lens))
+    ref = families.apply_model(params, mc, torch.tensor(states), torch.tensor(lens))
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    for k, b in zip(eval_head(lazy, mc, head_idx=1), eval_head(params, mc, head_idx=1)):
+        assert torch.equal(k, b)
 
 
 def test_bfloat16_compute_raises():

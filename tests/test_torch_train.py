@@ -272,10 +272,12 @@ def test_train_state_holds_params_to_the_config():
 
 
 def test_lazy_and_mesh_name_their_slice():
+    """A lazy Q-head Adam on a family without Q heads raises as the
+    reference's does; a mesh names its slice."""
     mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="gru4rec")
     params = params_from_numpy(numpy_init_params(mc, seed=0), "cpu")
     _, opt = make_train_state(params, mc, LR, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        make_train_step(mc, opt, lazy_embedding_lr=0.01, device="cpu")
+    with pytest.raises(ValueError, match="needs a Q family"):
+        make_train_step(mc, opt, lazy_qhead_lr=0.01, device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
         make_train_step(mc, opt, mesh=object(), device="cpu")
