@@ -17,6 +17,19 @@
 // Layouts are batch-major and contiguous: xw and dxw (B, T, 3H), W_h (H, 3H),
 // b_h (3H), mask (B, T) or null, y and gy (B, T, H), g_hfin (B, H).
 //
+// Types: xw, W_h, b_h, y, gy, g_hfin, dxw and the returned [dW_h; db_h] are
+// all fp32 (gru_bwd) or all bf16 (gru_bwd_bf16); the mask and the scratch dhw
+// are fp32 in both. bf16 is only what memory holds, as in the TPU kernel
+// (gru_pallas.py:175-212, 258-270): every value is widened to fp32 where it
+// is read, so h_prev is the forward's stored bf16 y widened (the gates are
+// recomputed from it, never from the forward's fp32 carry); every product,
+// gate and the dh carry are fp32; dxw rounds to bf16 where it is stored; dhw
+// stays fp32, so dW_h and db_h are fp32 sums over all (b, t), rounded to bf16
+// once at their store. A staged step's xw, h_prev and gy rows stay bf16 in
+// the ring and are widened where they are read; W_h (shared-memory layout),
+// b_h and g_hfin are widened once while they are staged, so every other
+// layout below is as in fp32.
+//
 // What bounds it: the T steps are serial, as in the forward, and each step
 // does two dependent products of the forward's size (recompute h_prev W_h,
 // then dhw W_h^T) with block barriers between them. At the train point
@@ -34,7 +47,9 @@
 //    quads), and W_h is read through L2 above.
 //    - Loads off the chain: a step's rows of xw, h_prev, gy and the mask
 //      come into a ring of two staged steps by cp.async (16 bytes a copy
-//      where H % 4 == 0 and the rows are aligned, else 4), step s + 2's
+//      where the rows are 16-byte multiples and aligned: H % 4 == 0 in fp32,
+//      H % 8 == 0 in bf16; else 4 bytes in fp32 and plain 2-byte loads in
+//      bf16), step s + 2's
 //      started as soon as step s frees its buffer; W_h, b_h and g_hfin
 //      arrive with step 0.
 //    - Shorter chains: each product is cut into about one piece a warp.
@@ -64,9 +79,13 @@
 
 #include <type_traits>
 
+#include "gru_io.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace gru_io;
 
 constexpr int kThreads = 512;        // an adjoint block
 constexpr int kWarps = kThreads / 32;
@@ -89,7 +108,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // Copies 16 (or 4) bytes from src, or writes zeros where src is null (a
 // source size of 0 reads nothing from `any`, a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, const float* any) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, const void* any) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src ? src : any), "r"(src ? 16 : 0)
                : "memory");
@@ -148,26 +167,30 @@ __host__ __device__ constexpr int w_pitch(int H) {
 __host__ __device__ constexpr int col_blocks(int H) { return cdiv(3 * H, 128); }
 __host__ __device__ constexpr int unit_blocks(int H) { return cdiv(H, 32); }
 
-// Offsets (floats) into the adjoint's dynamic shared memory.
+// Offsets (floats) into the adjoint's dynamic shared memory; esz: the bytes
+// of a value in memory (4 or 2), which size the staged rows: XR and HR
+// floats hold a 16-byte padded row of 3H and of H values (X4 and H4 in fp32).
 struct Layout {
-  int WP, X4, H4, stage, bh, st, hwp, dhw, carry, dhp, total;
-  __host__ __device__ Layout(int H, int R, bool w_smem, int ks, int cs)
-      : WP(w_pitch(H)), X4(round4(3 * H)), H4(round4(H)), stage(R * (X4 + 2 * H4) + 4),
+  int WP, X4, H4, XR, HR, stage, bh, st, hwp, dhw, carry, dhp, total;
+  __host__ __device__ Layout(int H, int R, bool w_smem, int ks, int cs, int esz)
+      : WP(w_pitch(H)), X4(round4(3 * H)), H4(round4(H)), XR(round4(cdiv(3 * H * esz, 4))),
+        HR(round4(cdiv(H * esz, 4))), stage(R * (XR + 2 * HR) + 4),
         bh(w_smem ? H4 * WP : 0), st(bh + X4), hwp(st + kStages * stage),
         dhw(hwp + ks * R * X4), carry(dhw + R * X4), dhp(carry + R * H4),
         total(dhp + cs * R * H4) {}
 };
 
-template <int R, bool W_SMEM, bool VEC>
+template <int R, bool W_SMEM, bool VEC, typename Tm>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
-               const float* __restrict__ bh, const float* __restrict__ mask,
-               const float* __restrict__ y, const float* __restrict__ gy,
-               const float* __restrict__ ghfin, float* __restrict__ dxw,
+gru_bwd_kernel(const Tm* __restrict__ xw, const Tm* __restrict__ wh,
+               const Tm* __restrict__ bh, const float* __restrict__ mask,
+               const Tm* __restrict__ y, const Tm* __restrict__ gy,
+               const Tm* __restrict__ ghfin, Tm* __restrict__ dxw,
                float* __restrict__ dhw, int B, int T, int H, int reverse, int KS, int CS) {
   static_assert(R == 1 || R == 2, "one or two rows a block");
+  constexpr bool kF32 = std::is_same<Tm, float>::value;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(H, R, W_SMEM, KS, CS);
+  const Layout L(H, R, W_SMEM, KS, CS, sizeof(Tm));
   const int H3 = 3 * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * R;
@@ -176,13 +199,20 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
   float* dhw_s = smem + L.dhw;    // (R, X4) [da_r, da_z, dhn], zero past 3H
   float* carry_s = smem + L.carry;  // (R, H4) dh_t z + dh_skip
   float* dhp_s = smem + L.dhp;    // (CS, R, H4) slices of dhw W_h^T
-  // a staged step: xw (R, X4), h_prev (R, H4), gy (R, H4), mask (R)
+  // a staged step in memory's type: xw (R, XR), h_prev (R, HR), gy (R, HR);
+  // then the mask (R)
   auto staged = [&](int s) { return smem + L.st + (s % kStages) * L.stage; };
+  // value j of row r of a staged block at `base`, rows `pitch` floats apart
+  auto at = [&](const float* base, int pitch, int r, int j) {
+    return f32(reinterpret_cast<const Tm*>(base + r * pitch)[j]);
+  };
 
   // A step's copies, one flat index each, so that a thread starts one or
-  // two a step with no division: xw rows, h_prev rows, gy rows, the mask.
-  constexpr int kv = VEC ? 4 : 1;
-  const int px = L.X4 / kv, ph = L.H4 / kv;
+  // two a step with no division: xw rows, h_prev rows, gy rows, the mask. A
+  // copy moves kv values: 16 bytes (VEC), else one value (4-byte cp.async in
+  // fp32, a plain load and store in bf16).
+  constexpr int kv = VEC ? 16 / (int)sizeof(Tm) : 1;
+  const int px = L.XR * 4 / ((int)sizeof(Tm) * kv), ph = L.HR * 4 / ((int)sizeof(Tm) * kv);
   const int n_copies = R * (px + 2 * ph) + (mask != nullptr ? R : 0);
   auto stage_step = [&](int s) {
     float* st = staged(s);
@@ -193,9 +223,11 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
       int n = i;
       if (n < R * px) {
         const int r = R == 2 && n >= px, e = (n - r * px) * kv, b = row0 + r;
-        const float* src = b < B && e < H3 ? xw + ((size_t)b * T + t) * H3 + e : nullptr;
-        if constexpr (VEC) cp_async16(st + r * L.X4 + e, src, xw);
-        else cp_async4(st + r * L.X4 + e, src, xw);
+        const Tm* src = b < B && e < H3 ? xw + ((size_t)b * T + t) * H3 + e : nullptr;
+        Tm* dst = reinterpret_cast<Tm*>(st + r * L.XR) + e;
+        if constexpr (VEC) cp_async16(dst, src, xw);
+        else if constexpr (kF32) cp_async4(dst, src, xw);
+        else *dst = src != nullptr ? *src : to_mem<Tm>(0.0f);
         continue;
       }
       n -= R * px;
@@ -203,32 +235,50 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
         const bool g = n >= R * ph;
         n -= g ? R * ph : 0;
         const int r = R == 2 && n >= ph, e = (n - r * ph) * kv, b = row0 + r;
-        const float* src = nullptr;
+        const Tm* src = nullptr;
         if (b < B && e < H && (g || !first))
           src = g ? gy + ((size_t)b * T + t) * H + e : y + ((size_t)b * T + tp) * H + e;
-        float* dst = st + R * L.X4 + (g ? R * L.H4 : 0) + r * L.H4 + e;
+        Tm* dst = reinterpret_cast<Tm*>(st + R * L.XR + (g ? R * L.HR : 0) + r * L.HR) + e;
         if constexpr (VEC) cp_async16(dst, src, gy);
-        else cp_async4(dst, src, gy);
+        else if constexpr (kF32) cp_async4(dst, src, gy);
+        else *dst = src != nullptr ? *src : to_mem<Tm>(0.0f);
         continue;
       }
       const int r = n - 2 * R * ph, b = row0 + r;
-      cp_async4(st + R * (L.X4 + 2 * L.H4) + r, b < B ? mask + (size_t)b * T + t : nullptr, mask);
+      cp_async4(st + R * (L.XR + 2 * L.HR) + r, b < B ? mask + (size_t)b * T + t : nullptr, mask);
     }
   };
 
-  // W_h, b_h, the dh carry and the first step arrive together
-  if constexpr (W_SMEM) {
-    stage_rows<VEC>(w_s, L.WP, L.H4, L.WP, wh, [&](int k, int c) -> const float* {
-      return k < H && c < H3 ? wh + (size_t)k * H3 + c : nullptr;
+  // W_h, b_h, the dh carry and the first step arrive together; in bf16 the
+  // first three are widened by plain loads, issued while step 0's copies fly
+  if constexpr (kF32) {
+    if constexpr (W_SMEM) {
+      stage_rows<VEC>(w_s, L.WP, L.H4, L.WP, wh, [&](int k, int c) -> const float* {
+        return k < H && c < H3 ? wh + (size_t)k * H3 + c : nullptr;
+      });
+    }
+    stage_rows<false>(smem + L.bh, 0, 1, H3, bh, [&](int, int c) { return bh + c; });
+    stage_rows<VEC>(carry_s, L.H4, R, L.H4, ghfin, [&](int r, int j) -> const float* {
+      const int b = row0 + r;
+      return b < B && j < H ? ghfin + (size_t)b * H + j : nullptr;
     });
   }
-  stage_rows<false>(smem + L.bh, 0, 1, H3, bh, [&](int, int c) { return bh + c; });
-  stage_rows<VEC>(carry_s, L.H4, R, L.H4, ghfin, [&](int r, int j) -> const float* {
-    const int b = row0 + r;
-    return b < B && j < H ? ghfin + (size_t)b * H + j : nullptr;
-  });
   stage_step(0);
   cp_async_commit();
+  if constexpr (!kF32) {
+    if constexpr (W_SMEM) {
+      widen_rows<VEC, 8>(w_s, L.WP, L.H4, L.X4, [&](int k, int c) -> const bf16* {
+        return k < H && c < H3 ? wh + (size_t)k * H3 + c : nullptr;
+      });
+      for (int i = tid; i < L.H4 * (L.WP - L.X4); i += kThreads)  // the pitch's padding
+        w_s[(i / (L.WP - L.X4)) * L.WP + L.X4 + i % (L.WP - L.X4)] = 0.0f;
+    }
+    widen_rows<false, 1>(smem + L.bh, 0, 1, H3, [&](int, int c) { return bh + c; });
+    widen_rows<VEC, 1>(carry_s, L.H4, R, L.H4, [&](int r, int j) -> const bf16* {
+      const int b = row0 + r;
+      return b < B && j < H ? ghfin + (size_t)b * H + j : nullptr;
+    });
+  }
   for (int i = tid; i < R * (L.X4 - H3); i += kThreads)
     dhw_s[(i / (L.X4 - H3)) * L.X4 + H3 + i % (L.X4 - H3)] = 0.0f;
 
@@ -237,7 +287,7 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
 
   // Whether step s has a row the mask lets through (block-uniform).
   auto is_active = [&](int s) {
-    const float* m_st = staged(s) + R * (L.X4 + 2 * L.H4);
+    const float* m_st = staged(s) + R * (L.XR + 2 * L.HR);
     bool active = false;
 #pragma unroll
     for (int r = 0; r < R; ++r) active |= row0 + r < B && (mask == nullptr || m_st[r] != 0.0f);
@@ -248,7 +298,7 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
   // quads for 128 columns, a lane 4 adjacent ones (W_h's rows read as
   // float4). The sums below add the slices into slice 0.
   auto hw_slices = [&](int s) {
-    const float* hp_st = staged(s) + R * L.X4;
+    const float* hp_st = staged(s) + R * L.XR;
     for (int item = warp; item < ncb * KS; item += kWarps) {
       const int ks = item % KS, c = (item / KS) * 128 + 4 * lane;
       const int q0 = ks * kq, q1 = min(qk, q0 + kq);
@@ -258,7 +308,8 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
       for (int q = q0; q < q1; ++q) {
         float4 h[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) h[r] = *reinterpret_cast<const float4*>(hp_st + r * L.H4 + 4 * q);
+        for (int r = 0; r < R; ++r)
+          h[r] = ld4(reinterpret_cast<const Tm*>(hp_st + r * L.HR) + 4 * q);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int k = 4 * q + i;
@@ -266,12 +317,13 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
           if constexpr (W_SMEM) {
             if (c < L.WP) w = *reinterpret_cast<const float4*>(w_s + k * L.WP + c);
           } else if constexpr (VEC) {
-            if (k < H && c < H3) w = __ldg(reinterpret_cast<const float4*>(wh + (size_t)k * H3 + c));
+            if (k < H && c < H3) w = ldg4(wh + (size_t)k * H3 + c);
           } else if (k < H) {
-            const float* row = wh + (size_t)k * H3;
-            w = make_float4(c < H3 ? __ldg(row + c) : 0.0f, c + 1 < H3 ? __ldg(row + c + 1) : 0.0f,
-                            c + 2 < H3 ? __ldg(row + c + 2) : 0.0f,
-                            c + 3 < H3 ? __ldg(row + c + 3) : 0.0f);
+            const Tm* row = wh + (size_t)k * H3;
+            w = make_float4(c < H3 ? f32(__ldg(row + c)) : 0.0f,
+                            c + 1 < H3 ? f32(__ldg(row + c + 1)) : 0.0f,
+                            c + 2 < H3 ? f32(__ldg(row + c + 2)) : 0.0f,
+                            c + 3 < H3 ? f32(__ldg(row + c + 3)) : 0.0f);
           }
 #pragma unroll
           for (int r = 0; r < R; ++r) {
@@ -305,13 +357,14 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
         if constexpr (W_SMEM) {
           w = *reinterpret_cast<const float4*>(w_s + j * L.WP + 4 * q);
         } else if constexpr (VEC) {
-          w = __ldg(reinterpret_cast<const float4*>(wh + (size_t)j * H3 + 4 * q));
+          w = ldg4(wh + (size_t)j * H3 + 4 * q);
         } else {
-          const float* row = wh + (size_t)j * H3;
+          const Tm* row = wh + (size_t)j * H3;
           const int c = 4 * q;
-          w = make_float4(c < H3 ? __ldg(row + c) : 0.0f, c + 1 < H3 ? __ldg(row + c + 1) : 0.0f,
-                          c + 2 < H3 ? __ldg(row + c + 2) : 0.0f,
-                          c + 3 < H3 ? __ldg(row + c + 3) : 0.0f);
+          w = make_float4(c < H3 ? f32(__ldg(row + c)) : 0.0f,
+                          c + 1 < H3 ? f32(__ldg(row + c + 1)) : 0.0f,
+                          c + 2 < H3 ? f32(__ldg(row + c + 2)) : 0.0f,
+                          c + 3 < H3 ? f32(__ldg(row + c + 3)) : 0.0f);
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -346,9 +399,9 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
     if (s >= 0) {
       const int t = reverse ? s : T - 1 - s;
       const float* xw_st = staged(s);
-      const float* hp_st = xw_st + R * L.X4;
-      const float* gy_st = hp_st + R * L.H4;
-      const float* m_st = gy_st + R * L.H4;
+      const float* hp_st = xw_st + R * L.XR;
+      const float* gy_st = hp_st + R * L.HR;
+      const float* m_st = gy_st + R * L.HR;
       __syncthreads();  // the slices of the phase before are written
 
       // dh entering the step: the carry, the last step's dhw W_h^T, and gy
@@ -360,7 +413,7 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
           for (int c = 0; c < CS; ++c) a += dhp_s[(c * R + r) * L.H4 + j];
           dh += a;
         }
-        return dh + gy_st[r * L.H4 + j];
+        return dh + at(gy_st, L.HR, r, j);
       };
 
       if (active) {
@@ -382,18 +435,17 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
         // the gates and their adjoints, per (row, unit)
         for (int i = tid; i < R * H; i += kThreads) {
           const int r = i / H, j = i - r * H, b = row0 + r;
-          const float* x = xw_st + r * L.X4;
           const float* hw = hwp_s + r * L.X4;
           const float hr = hw[j], hz = hw[H + j], hn = hw[2 * H + j];
-          const float rg = sigmoid(x[j] + hr);
-          const float zg = sigmoid(x[H + j] + hz);
-          const float ng = tanhf(x[2 * H + j] + rg * hn);
+          const float rg = sigmoid(at(xw_st, L.XR, r, j) + hr);
+          const float zg = sigmoid(at(xw_st, L.XR, r, H + j) + hz);
+          const float ng = tanhf(at(xw_st, L.XR, r, 2 * H + j) + rg * hn);
           const float m = mask == nullptr ? 1.0f : m_st[r];
           const float dh = carry_s[r * L.H4 + j];
           const float dh_t = dh * m;
           const float dh_skip = dh * (1.0f - m);
           const float dn = dh_t * (1.0f - zg);
-          const float dz = dh_t * (hp_st[r * L.H4 + j] - ng);
+          const float dz = dh_t * (at(hp_st, L.HR, r, j) - ng);
           const float da_n = dn * (1.0f - ng * ng);
           const float dr = da_n * hn;
           const float dhn = da_n * rg;
@@ -401,9 +453,9 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
           const float da_r = dr * rg * (1.0f - rg);
           if (b < B) {
             const size_t o = ((size_t)b * T + t) * H3;
-            dxw[o + j] = da_r;
-            dxw[o + H + j] = da_z;
-            dxw[o + 2 * H + j] = da_n;
+            dxw[o + j] = to_mem<Tm>(da_r);
+            dxw[o + H + j] = to_mem<Tm>(da_z);
+            dxw[o + 2 * H + j] = to_mem<Tm>(da_n);
             dhw[o + j] = da_r;
             dhw[o + H + j] = da_z;
             dhw[o + 2 * H + j] = dhn;
@@ -421,7 +473,7 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
           carry_s[r * L.H4 + j] = dh_in(r, j);
           if (b < B) {
             const size_t o = ((size_t)b * T + t) * H3;
-            dxw[o + j] = dxw[o + H + j] = dxw[o + 2 * H + j] = 0.0f;
+            dxw[o + j] = dxw[o + H + j] = dxw[o + 2 * H + j] = to_mem<Tm>(0.0f);
             dhw[o + j] = dhw[o + H + j] = dhw[o + 2 * H + j] = 0.0f;
           }
         }
@@ -452,11 +504,14 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
 // blocks the lanes also sum their columns of dhw (db_h, row 32 of the tile;
 // those of tk = 0 keep it). The block adds its warps' tiles in warp order
 // and sends row i of the result to the cluster's block i % 8, which adds
-// the eight blocks' rows in rank order.
-template <bool VEC>
+// the eight blocks' rows in rank order. In bf16, y's slab stays bf16 (a
+// (64, 32) half of its slot) and is widened where it is read, and out is
+// rounded to bf16 at its store; dhw and every sum are fp32.
+template <bool VEC, typename Tm>
 __global__ void __cluster_dims__(1, 1, kCluster) __launch_bounds__(kDwThreads)
-gru_dwh_kernel(const float* __restrict__ y, const float* __restrict__ dhw,
-               float* __restrict__ out, int B, int T, int H, int reverse) {
+gru_dwh_kernel(const Tm* __restrict__ y, const float* __restrict__ dhw,
+               Tm* __restrict__ out, int B, int T, int H, int reverse) {
+  constexpr bool kF32 = std::is_same<Tm, float>::value;
   constexpr int kDwWarps = kDwThreads / 32;
   constexpr int kOwned = cdiv(kTile + 1, kCluster);  // rows of the tile a block sums
   // the ring of slabs (h_prev rows, dhw rows); after the loop, the warps' tiles
@@ -479,32 +534,45 @@ gru_dwh_kernel(const float* __restrict__ y, const float* __restrict__ dhw,
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   // VEC: thread tid copies rows tid / 8 and tid / 8 + 32 of each slab at
-  // column 4 (tid % 8); the steps t of those rows move on by kSlab % T a slab.
+  // column 4 (tid % 8) (in bf16, of dhw only; y's row tid / 4 at column
+  // 8 (tid % 4)); the steps t of those rows move on by kSlab % T a slab.
   const int vr = tid >> 3, ve = 4 * (tid & 7), dt = kSlab % T;
   int vt[2] = {(q0 + vr) % T, (q0 + vr + 32) % T};
+  const int br = tid >> 2, be = 8 * (tid & 3);
+  int bt = (q0 + br) % T;
+  // the (h_prev, k) value of slab row r, or null: zero at the forward's first step
+  auto h_prev = [&](int q, int t, int k) -> const Tm* {
+    if (q >= q1 || k >= H || (reverse ? t == T - 1 : t == 0)) return nullptr;
+    return y + (size_t)(q + (reverse ? 1 : -1)) * H + k;
+  };
   auto stage_slab = [&](int n) {  // rows q0 + 64 n ..
     const int qs = q0 + n * kSlab;
     float(*slab)[kSlab][kTile] = ring_s[n % kDwStages];
+    Tm(*yb)[kTile] = reinterpret_cast<Tm(*)[kTile]>(&slab[0][0][0]);  // y's rows
     if constexpr (VEC) {
+      if constexpr (!kF32) {
+        cp_async16(&yb[br][be], h_prev(qs + br, bt, k0 + be), y);
+        bt = bt + dt >= T ? bt + dt - T : bt + dt;
+      }
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const int r = vr + 32 * m, q = qs + r, t = vt[m];
-        const bool first = reverse ? t == T - 1 : t == 0;
-        cp_async16(&slab[0][r][ve],
-                   q < q1 && k0 + ve < H && !first
-                       ? y + (size_t)(q + (reverse ? 1 : -1)) * H + k0 + ve : nullptr, y);
+        if constexpr (kF32) cp_async16(&yb[r][ve], h_prev(q, t, k0 + ve), y);
         cp_async16(&slab[1][r][ve], q < q1 && c0 + ve < H3 ? dhw + (size_t)q * H3 + c0 + ve : nullptr,
                    dhw);
         vt[m] = t + dt >= T ? t + dt - T : t + dt;
       }
     } else {
-      stage_rows<false>(&slab[0][0][0], kTile, kSlab, kTile, y, [&](int r, int e) -> const float* {
-        const int q = qs + r, k = k0 + e;
-        if (q >= q1 || k >= H) return nullptr;
-        const int t = q % T;
-        if (reverse ? t == T - 1 : t == 0) return nullptr;
-        return y + (size_t)(q + (reverse ? 1 : -1)) * H + k;
-      });
+      if constexpr (kF32) {
+        stage_rows<false>(&slab[0][0][0], kTile, kSlab, kTile, y,
+                          [&](int r, int e) { return h_prev(qs + r, (qs + r) % T, k0 + e); });
+      } else {
+        for (int i = tid; i < kSlab * kTile; i += kDwThreads) {
+          const int r = i / kTile, e = i % kTile;
+          const Tm* src = h_prev(qs + r, (qs + r) % T, k0 + e);
+          yb[r][e] = src != nullptr ? *src : to_mem<Tm>(0.0f);
+        }
+      }
       stage_rows<false>(&slab[1][0][0], kTile, kSlab, kTile, dhw,
                         [&](int r, int e) -> const float* {
                           const int q = qs + r, c = c0 + e;
@@ -522,11 +590,11 @@ gru_dwh_kernel(const float* __restrict__ y, const float* __restrict__ dhw,
 #pragma unroll
   for (int j = 0; j < 8; ++j) db[j] = 0.0f;
 
-  auto rows = [&](auto with_db, const float(*a)[kTile], const float(*v)[kTile]) {
+  auto rows = [&](auto with_db, const Tm(*a)[kTile], const float(*v)[kTile]) {
 #pragma unroll
     for (int rr = 0; rr < 8; ++rr) {
       const int r = 8 * warp + rr;
-      const float4 av = *reinterpret_cast<const float4*>(&a[r][4 * tk]);
+      const float4 av = ld4(&a[r][4 * tk]);
       const float4 v0 = *reinterpret_cast<const float4*>(&v[r][8 * tc]);
       const float4 v1 = *reinterpret_cast<const float4*>(&v[r][8 * tc + 4]);
       const float as[4] = {av.x, av.y, av.z, av.w};
@@ -552,7 +620,7 @@ gru_dwh_kernel(const float* __restrict__ y, const float* __restrict__ dhw,
     __syncthreads();  // slab n visible; every thread done with slab n - 1
     if (n + kDwStages - 1 < slabs) stage_slab(n + kDwStages - 1);
     cp_async_commit();
-    const float(*a)[kTile] = ring_s[n % kDwStages][0];
+    const Tm(*a)[kTile] = reinterpret_cast<const Tm(*)[kTile]>(&ring_s[n % kDwStages][0][0][0]);
     const float(*v)[kTile] = ring_s[n % kDwStages][1];
     if (blockIdx.x == 0) {  // every lane sums its columns; those of tk = 0 keep them
       rows(std::true_type{}, a, v);
@@ -589,7 +657,7 @@ gru_dwh_kernel(const float* __restrict__ y, const float* __restrict__ dhw,
     float sum = 0.0f;
 #pragma unroll
     for (int src = 0; src < kCluster; ++src) sum += recv_s[src][m][c];
-    out[(size_t)(i < kTile ? k0 + i : H) * H3 + c0 + c] = sum;
+    out[(size_t)(i < kTile ? k0 + i : H) * H3 + c0 + c] = to_mem<Tm>(sum);
   }
 }
 
@@ -601,30 +669,32 @@ struct Plan {
   size_t smem;
 };
 
-size_t smem_bytes(int H, int R, bool w_smem, int ks, int cs) {
-  return sizeof(float) * (size_t)Layout(H, R, w_smem, ks, cs).total;
+size_t smem_bytes(int H, int R, bool w_smem, int ks, int cs, int esz) {
+  return sizeof(float) * (size_t)Layout(H, R, w_smem, ks, cs, esz).total;
 }
 
-Plan plan(int H) {
+// esz: the bytes of a value in memory.
+Plan plan(int H, int esz) {
   int ks = max(1, min(kWarps / col_blocks(H), round4(H) / 4));
   int cs = max(1, min(kWarps / unit_blocks(H), round4(3 * H) / 4));
   if (H <= kMaxSmemH) {
     int k = ks, c = cs;
-    while (smem_bytes(H, 2, true, k, c) > kMaxSmem && (k > 1 || c > 1)) {
+    while (smem_bytes(H, 2, true, k, c, esz) > kMaxSmem && (k > 1 || c > 1)) {
       if (k >= c) --k;
       else --c;
     }
-    if (smem_bytes(H, 2, true, k, c) <= kMaxSmem) return {true, 2, k, c, smem_bytes(H, 2, true, k, c)};
+    if (smem_bytes(H, 2, true, k, c, esz) <= kMaxSmem)
+      return {true, 2, k, c, smem_bytes(H, 2, true, k, c, esz)};
   }
-  return {false, 1, ks, cs, smem_bytes(H, 1, false, ks, cs)};
+  return {false, 1, ks, cs, smem_bytes(H, 1, false, ks, cs, esz)};
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Raises the dynamic shared-memory limit of gru_bwd_kernel<R, W_SMEM, VEC>
+// Raises the dynamic shared-memory limit of gru_bwd_kernel<R, W_SMEM, VEC, Tm>
 // once per device (and not inside a CUDA graph capture, where the same
 // launch recurs); each instantiation keeps its own record.
-template <int R, bool W_SMEM, bool VEC>
+template <int R, bool W_SMEM, bool VEC, typename Tm>
 cudaError_t allow_smem(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   constexpr int kMaxDevices = 64;
@@ -633,50 +703,73 @@ cudaError_t allow_smem(size_t smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && allowed[dev] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(gru_bwd_kernel<R, W_SMEM, VEC>,
+  err = cudaFuncSetAttribute(gru_bwd_kernel<R, W_SMEM, VEC, Tm>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
   return err;
 }
 
-template <int R, bool W_SMEM, bool VEC>
-cudaError_t launch(const float* xw, const float* wh, const float* bh, const float* mask,
-                   const float* y, const float* gy, const float* ghfin, float* dxw, float* dhw,
-                   float* out, int B, int T, int H, int reverse, const Plan& pl,
-                   cudaStream_t stream) {
-  cudaError_t err = allow_smem<R, W_SMEM, VEC>(pl.smem);
+template <typename Tm>
+struct Args {
+  const Tm *xw, *wh, *bh;
+  const float* mask;
+  const Tm *y, *gy, *ghfin;
+  Tm* dxw;
+  float* dhw;
+  Tm* out;
+  int B, T, H, reverse;
+};
+
+template <int R, bool W_SMEM, bool VEC, typename Tm>
+cudaError_t launch(const Args<Tm>& a, const Plan& pl, cudaStream_t stream) {
+  cudaError_t err = allow_smem<R, W_SMEM, VEC, Tm>(pl.smem);
   if (err != cudaSuccess) return err;
-  gru_bwd_kernel<R, W_SMEM, VEC><<<(B + R - 1) / R, kThreads, pl.smem, stream>>>(
-      xw, wh, bh, mask, y, gy, ghfin, dxw, dhw, B, T, H, reverse, pl.ks, pl.cs);
+  gru_bwd_kernel<R, W_SMEM, VEC, Tm><<<(a.B + R - 1) / R, kThreads, pl.smem, stream>>>(
+      a.xw, a.wh, a.bh, a.mask, a.y, a.gy, a.ghfin, a.dxw, a.dhw, a.B, a.T, a.H, a.reverse,
+      pl.ks, pl.cs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(H, kTile), cdiv(3 * H, kTile), kCluster);
-  gru_dwh_kernel<VEC><<<grid, kDwThreads, 0, stream>>>(y, dhw, out, B, T, H, reverse);
+  const dim3 grid(cdiv(a.H, kTile), cdiv(3 * a.H, kTile), kCluster);
+  gru_dwh_kernel<VEC, Tm><<<grid, kDwThreads, 0, stream>>>(a.y, a.dhw, a.out, a.B, a.T, a.H,
+                                                          a.reverse);
   return cudaGetLastError();
+}
+
+// 16-byte copies where the rows of H and 3H values are 16-byte multiples
+// and the bases aligned: H % 4 == 0 in fp32, H % 8 == 0 in bf16.
+template <typename Tm>
+int run(const Args<Tm>& a, void* stream) {
+  if (a.B < 1 || a.T < 1 || a.H < 1 || a.H > 1024) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan pl = plan(a.H, sizeof(Tm));
+  const bool vec = a.H % (16 / (int)sizeof(Tm)) == 0 && aligned16(a.xw) && aligned16(a.wh) &&
+                   aligned16(a.y) && aligned16(a.gy) && aligned16(a.ghfin) && aligned16(a.dhw);
+  if (pl.w_smem) {
+    return (int)(vec ? launch<2, true, true>(a, pl, st) : launch<2, true, false>(a, pl, st));
+  }
+  return (int)(vec ? launch<1, false, true>(a, pl, st) : launch<1, false, false>(a, pl, st));
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() after the two launches
-// (0 on success). `mask` may be null (every step advances h). `dhw` is
-// scratch of (B, T, 3H); `out` (H + 1, 3H) receives [dW_h; db_h].
+// Launch on `stream` and return cudaGetLastError() after the two launches
+// (0 on success). `mask` may be null (every step advances h). `dhw` is fp32
+// scratch of (B, T, 3H); `out` (H + 1, 3H) receives [dW_h; db_h]. gru_bwd
+// takes fp32 tensors, gru_bwd_bf16 bf16 ones (the mask and dhw fp32 in both).
 extern "C" int gru_bwd(const float* xw, const float* wh, const float* bh, const float* mask,
                        const float* y, const float* gy, const float* ghfin, float* dxw,
                        float* dhw, float* out, int B, int T, int H, int reverse,
                        void* stream) {
-  if (B < 1 || T < 1 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan pl = plan(H);
-  const bool vec = H % 4 == 0 && aligned16(xw) && aligned16(wh) && aligned16(y) &&
-                   aligned16(gy) && aligned16(ghfin) && aligned16(dhw);
-  if (pl.w_smem) {
-    return (int)(vec ? launch<2, true, true>(xw, wh, bh, mask, y, gy, ghfin, dxw, dhw, out, B,
-                                             T, H, reverse, pl, st)
-                     : launch<2, true, false>(xw, wh, bh, mask, y, gy, ghfin, dxw, dhw, out, B,
-                                              T, H, reverse, pl, st));
-  }
-  return (int)(vec ? launch<1, false, true>(xw, wh, bh, mask, y, gy, ghfin, dxw, dhw, out, B, T,
-                                            H, reverse, pl, st)
-                   : launch<1, false, false>(xw, wh, bh, mask, y, gy, ghfin, dxw, dhw, out, B,
-                                             T, H, reverse, pl, st));
+  return run<float>({xw, wh, bh, mask, y, gy, ghfin, dxw, dhw, out, B, T, H, reverse}, stream);
+}
+
+extern "C" int gru_bwd_bf16(const void* xw, const void* wh, const void* bh, const float* mask,
+                            const void* y, const void* gy, const void* ghfin, void* dxw,
+                            float* dhw, void* out, int B, int T, int H, int reverse,
+                            void* stream) {
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto io = [](void* p) { return static_cast<bf16*>(p); };
+  return run<bf16>({in(xw), in(wh), in(bh), mask, in(y), in(gy), in(ghfin), io(dxw), dhw,
+                    io(out), B, T, H, reverse},
+                   stream);
 }

@@ -1,8 +1,8 @@
-"""Session -> eval-window preprocessing (host side, vectorized numpy).
+"""Session -> replay-buffer windowing (host side, vectorized numpy).
 
-The port's own copy of the eval half of
-``ikea_recommender_tpu/data/preprocessing.py`` (reference
-``data_utils/preprocessing.py:320-382,479-489``). Per event row it builds
+The port's own copy of ``ikea_recommender_tpu/data/preprocessing.py``
+(reference ``data_utils/preprocessing.py:57-61,71-140,199-489``). Per
+event row it builds
 
 - ``state``              int[state_len]: the ``state_len`` items before this
                           event, padded with ``pad_id``;
@@ -12,21 +12,21 @@ The port's own copy of the eval half of
                           one pad token, as the reference's packed sequences
                           need: ``data_utils/preprocessing.py:260``);
 
-and, for the train buffer that comes with the trainer, ``next_state``,
+and, for the train buffer, ``r_act`` (the event's reward), ``next_state``,
 ``true_next_state_len`` and ``is_end``. Padding: ``pad_pos="end"`` gives
 ``[oldest..newest, pad...]``, ``pad_pos="beg"`` ``[pad..., oldest..newest]``.
 One (N, state_len) gather-index matrix and two fancy-indexing passes do
 it, linear in events x state_len.
 
-:func:`window_sessions` is numpy only. pandas is imported only inside
-:func:`_read_frame` and :func:`preprocess_val_data`, the DataFrame-facing
-layer.
+:func:`window_sessions` and :func:`map_rewards` are numpy only. pandas is
+imported only inside :func:`_read_frame` and the ``preprocess_*``
+functions, the DataFrame-facing layer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -136,9 +136,20 @@ def window_sessions(
     )
 
 
+def map_rewards(
+    action_types: np.ndarray, action_to_reward: Dict, default: float = 0.0
+) -> np.ndarray:
+    """Action type -> reward, ``default`` where unmapped (reference
+    ``data_utils/preprocessing.py:57-61``, ``ikea/...:51-68``)."""
+    out = np.full(len(action_types), default, dtype=np.float64)
+    for act, rew in action_to_reward.items():
+        out[action_types == act] = rew
+    return out
+
+
 # ---------------------------------------------------------------------------
-# DataFrame-facing wrappers (reference ``data_utils/preprocessing.py:320-382``).
-# pandas only at this offline layer.
+# DataFrame-facing wrappers (reference ``data_utils/preprocessing.py:71-140,
+# 199-489``). pandas only at this offline layer.
 # ---------------------------------------------------------------------------
 
 
@@ -154,6 +165,44 @@ def _read_frame(src):
     return src.copy()
 
 
+def _windows(df, padding_id, state_len, pad_pos, session_id_name, action_name):
+    return window_sessions(
+        items=df[action_name].to_numpy(),
+        session_ids=df[session_id_name].to_numpy(),
+        state_len=state_len,
+        pad_id=padding_id,
+        pad_pos=pad_pos,
+    )
+
+
+def preprocess_train_data(
+    src,
+    padding_id: int,
+    state_len: int,
+    pad_pos: str = "end",
+    reward_name: str = "reward",
+    session_id_name: str = "session_id",
+    action_name: str = "item_id",
+):
+    """Session df -> the 7-column train replay-buffer df
+    (reference ``data_utils/preprocessing.py:385-489``)."""
+    import pandas as pd
+
+    df = _read_frame(src)
+    win = _windows(df, padding_id, state_len, pad_pos, session_id_name, action_name)
+    return pd.DataFrame(
+        {
+            "state": list(win.state),
+            "action": win.action,
+            "r_act": df[reward_name].to_numpy(),
+            "next_state": list(win.next_state),
+            "true_state_len": win.true_state_len,
+            "true_next_state_len": win.true_next_state_len,
+            "is_end": win.is_end,
+        }
+    )
+
+
 def preprocess_val_data(
     src,
     padding_id: int,
@@ -167,17 +216,73 @@ def preprocess_val_data(
     import pandas as pd
 
     df = _read_frame(src)
-    win = window_sessions(
-        items=df[action_name].to_numpy(),
-        session_ids=df[session_id_name].to_numpy(),
-        state_len=state_len,
-        pad_id=padding_id,
-        pad_pos=pad_pos,
-    )
+    win = _windows(df, padding_id, state_len, pad_pos, session_id_name, action_name)
     return pd.DataFrame(
         {
             "state": list(win.state),
             "action": win.action,
+            "true_state_len": win.true_state_len,
+        }
+    )
+
+
+def preprocess_train_data_incl_act_rew(
+    src,
+    padding_id: int,
+    state_len: int,
+    incl_reward: bool = False,
+    action_to_reward_dict: Optional[Dict] = None,
+    pad_pos: str = "end",
+    action_type_name: str = "is_buy",
+    session_id_name: str = "session_id",
+    action_name: str = "item_id",
+):
+    """The train df with each row's action type and, with ``incl_reward``,
+    a ``reward`` column mapped from it (reference
+    ``data_utils/preprocessing.py:199-317``)."""
+    import pandas as pd
+
+    df = _read_frame(src)
+    win = _windows(df, padding_id, state_len, pad_pos, session_id_name, action_name)
+    cols = {"state": list(win.state), "action": win.action}
+    if incl_reward:
+        cols["reward"] = map_rewards(
+            df[action_type_name].to_numpy(), action_to_reward_dict or {}
+        )
+    cols.update(
+        {
+            "next_state": list(win.next_state),
+            "action_type": df[action_type_name].to_numpy(),
+            "true_state_len": win.true_state_len,
+            "true_next_state_len": win.true_next_state_len,
+            "is_end": win.is_end,
+        }
+    )
+    return pd.DataFrame(cols)
+
+
+def preprocess_val_data_incl_act_rew(
+    src,
+    padding_id: int,
+    state_len: int,
+    action_to_reward_dict: Optional[Dict] = None,
+    pad_pos: str = "end",
+    action_type_name: str = "is_buy",
+    session_id_name: str = "session_id",
+    action_name: str = "item_id",
+):
+    """The eval df with each row's action type and mapped reward
+    (reference ``data_utils/preprocessing.py:71-140``)."""
+    import pandas as pd
+
+    df = _read_frame(src)
+    win = _windows(df, padding_id, state_len, pad_pos, session_id_name, action_name)
+    return pd.DataFrame(
+        {
+            "state": list(win.state),
+            "action": win.action,
+            "reward": map_rewards(df[action_type_name].to_numpy(), action_to_reward_dict or {}),
+            "action_type": df[action_type_name].to_numpy(),
             "true_state_len": win.true_state_len,
         }
     )

@@ -7,16 +7,17 @@ and iterators of batches that all have one shape, the trailing partial
 batch padded by repeating its first row and carrying a ``valid`` mask that
 every loss and metric respects.
 
-On-disk formats: ``.npz`` (the native columnar format, numpy only), pickled
-DataFrames (the RetailRocket generation) and JSON lines, the last two
-through pandas. Paths are local files, read directly: the reference's
-native JSON-lines parser and its ``Storage`` layer (object stores) are not
-ported; its pandas path gives the same columns. Files written by either
+On-disk formats: ``.npz`` (the native columnar format, numpy only), JSON
+lines (read through ``data/storage.py`` and parsed by the native parser of
+``data/native.py``, which needs numpy and a C++ compiler; pandas where it
+cannot be built or the rows carry a column it does not know) and pickled
+DataFrames (the RetailRocket generation, pandas). Files written by either
 package load in the other.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -65,6 +66,15 @@ def _load_columns(path: str, columns):
     if path.endswith(".npz"):
         with np.load(path) as data:
             return {c: data[c] for c in columns if c in data}
+    if path.endswith(".json") or path.endswith(".jsonl"):
+        from ikea_recommender_tpu_torch.data import native
+        from ikea_recommender_tpu_torch.data.storage import Storage
+
+        with Storage().open(path, "rb") as f:
+            raw = f.read()
+        cols = native.parse_jsonl_buffer(raw, columns)
+        if cols is not None:
+            return cols
     import pandas as pd
 
     if path.endswith(".json") or path.endswith(".jsonl"):
@@ -213,10 +223,11 @@ def load_eval_source(
     A prebuilt buffer has a ``state`` column (or is an ``.npz``); a raw
     val/test session file has session-id and item columns and is windowed in
     memory by ``preprocess_val_data`` (the reference's
-    ``evaluate/eval_dataset.py:6-77``)."""
+    ``evaluate/eval_dataset.py:6-77``). A JSON-lines file is told apart by
+    its first row, so that a prebuilt one loads without pandas."""
     from ikea_recommender_tpu_torch.data.preprocessing import _read_frame, preprocess_val_data
 
-    if path.endswith(".npz"):
+    if path.endswith(".npz") or _jsonl_first_row_has(path, "state"):
         return EvalBuffer(path)
     df = _read_frame(path)
     if "state" in df.columns:
@@ -235,6 +246,23 @@ def load_eval_source(
         action_name=item_col,
     )
     return EvalBuffer.from_dataframe(win)
+
+
+def _jsonl_first_row_has(path: str, column: str) -> bool:
+    """Whether ``path`` is JSON lines whose first non-blank row holds
+    ``column``."""
+    if not (path.endswith(".json") or path.endswith(".jsonl")):
+        return False
+    from ikea_recommender_tpu_torch.data.storage import Storage
+
+    with Storage().open(path, "rb") as f:
+        for line in f:
+            if line.strip():
+                try:
+                    return column in json.loads(line)
+                except ValueError:
+                    return False
+    return False
 
 
 def _pad_take(arr: np.ndarray, idx: np.ndarray, batch_size: int) -> np.ndarray:

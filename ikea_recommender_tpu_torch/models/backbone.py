@@ -16,7 +16,16 @@ The conventions carry over:
 - dropout on the head input, in training only, keeps each value with
   probability ``1 - dropout`` and scales it by ``1 / keep``. The keep mask
   comes from a ``torch.Generator`` that the caller passes in, where the
-  reference draws it from its PRNG key; the two give different masks.
+  reference draws it from its PRNG key; the two give different masks;
+- ``compute_dtype`` ("float32" or "bfloat16") is the type the backbone
+  computes in: the embedding rows and each GRU layer's four params are cast
+  to it (the params stay float32; autograd casts their gradients back), the
+  recurrence runs on it (the bf16 kernels of ``ops/gru_cuda.py``), dropout
+  applies in it, and the head input leaves as float32, as in the reference.
+  The rows are gathered, then cast, where the reference casts the table,
+  then gathers: the same values, no (V, E) cast a step, and a gradient
+  whose duplicate ids are summed in float32 where the reference sums them
+  in bfloat16 (ROADMAP C.5).
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from typing import Dict, List, Optional
 import torch
 
 from ikea_recommender_tpu_torch.models.gru import gru_layer_apply
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -57,6 +68,16 @@ class BackboneConfig:
     @property
     def feature_dim(self) -> int:
         return self.hidden_dim * (2 if self.bidirectional else 1)
+
+
+def compute_dtype(cfg: BackboneConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype``; raises on any other name."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
+            f"{' or '.join(COMPUTE_DTYPES)}"
+        )
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 def embedding_grad_mask(cfg: BackboneConfig, device=None) -> Optional[torch.Tensor]:
@@ -97,23 +118,24 @@ def apply_backbone(
     through dropout, its keep mask drawn from ``dropout_generator``.
     ``inputs_embeds`` (B, T, E) replaces the table gather: the lazy
     embedding Adam gathers the rows outside autograd, so their gradient
-    stays (B, T, E) instead of a (V, E) scatter."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only "
-            "so far; bfloat16 compute comes with ROADMAP A.8b"
-        )
+    stays (B, T, E) instead of a (V, E) scatter. Everything up to the head
+    input runs in ``cfg.compute_dtype``; the result is float32."""
+    dtype = compute_dtype(cfg)
     x = params["embedding"][states.long()] if inputs_embeds is None else inputs_embeds
+    x = x.to(dtype)
     lens = lengths if cfg.masked_recurrence else None
+
+    def cast(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: v.to(dtype) for k, v in p.items()}
 
     finals_fwd: List[torch.Tensor] = []
     finals_bwd: List[torch.Tensor] = []
     seq = x
     for layer_params in params["gru"]:
-        y_fwd, h_fwd = gru_layer_apply(layer_params["fwd"], seq, lens)
+        y_fwd, h_fwd = gru_layer_apply(cast(layer_params["fwd"]), seq, lens)
         finals_fwd.append(h_fwd)
         if cfg.bidirectional:
-            y_bwd, h_bwd = gru_layer_apply(layer_params["bwd"], seq, lens, reverse=True)
+            y_bwd, h_bwd = gru_layer_apply(cast(layer_params["bwd"]), seq, lens, reverse=True)
             finals_bwd.append(h_bwd)
             seq = torch.cat([y_fwd, y_bwd], dim=-1)
         else:
@@ -130,4 +152,4 @@ def apply_backbone(
             raise ValueError("training dropout needs a dropout_generator")
         keep = 1.0 - cfg.dropout
         h = apply_dropout(h, draw_keep_mask(h.shape, keep, dropout_generator, h.device), keep)
-    return h
+    return h.to(torch.float32)

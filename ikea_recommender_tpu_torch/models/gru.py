@@ -1,8 +1,10 @@
 """One GRU direction over a padded session batch.
 
 Port of ``ikea_recommender_tpu/models/gru.py::gru_layer_apply``. The input
-projection ``x W_i + b_i`` for all timesteps is one fp32 ``torch.matmul``
-outside any kernel, as the reference leaves it to XLA; the serial
+projection ``x W_i + b_i`` for all timesteps is one ``torch.matmul``
+outside any kernel, as the reference leaves it to XLA, then ``+ b_i``: two
+roundings in bfloat16 compute, as the reference's ``einsum(...) + bi``
+(a fused ``addmm`` would add b_i before its one rounding); the serial
 recurrence always runs through
 :func:`ikea_recommender_tpu_torch.ops.gru_cuda.gru_scan` (the hand-written
 forward and backward kernels on the card, their plain twins on the CPU), so
@@ -32,11 +34,12 @@ def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
 
 def gru_layer_apply(
     params: Dict[str, torch.Tensor],  # wi (E, 3H), wh (H, 3H), bi, bh (3H,)
-    x_seq: torch.Tensor,  # (B, T, E_in) float32
+    x_seq: torch.Tensor,  # (B, T, E_in) in the params' dtype (float32 or bfloat16)
     lengths: Optional[torch.Tensor],  # (B,) int or None for unmasked
     reverse: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y_seq (B, T, H), final_h (B, H))."""
+    """Returns (y_seq (B, T, H), final_h (B, H)) in x_seq's dtype; the mask
+    stays float32."""
     T = x_seq.shape[1]
     xw = torch.matmul(x_seq, params["wi"]) + params["bi"]
     mask = None if lengths is None else length_mask(lengths, T)

@@ -6,6 +6,10 @@ plain C interface, loaded with :mod:`ctypes`; :func:`build_all` runs one
 beside the package (listed in ``.gitignore``), named by a hash of the
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged one is reused.
+
+:func:`load_host` does the same for host C++ (the JSON-lines parser of
+``native/src/``) with the host compiler (``$CXX``, else ``g++``), into the
+same directory.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Dict, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -112,4 +118,38 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
+    return lib
+
+
+def host_library_path(source: Path) -> Path:
+    """The library of the host C++ ``source``, named by a hash of the source,
+    the compiler and the flags."""
+    digest = hashlib.sha256(Path(source).read_bytes())
+    digest.update(" ".join((os.environ.get("CXX", "g++"),) + HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def load_host(source: Path) -> ctypes.CDLL:
+    """The loaded library of the host C++ ``source``, compiled first if
+    needed. Raises where it cannot be built or loaded."""
+    key = f"host:{source}"
+    lib = _LIBS.get(key)
+    if lib is None:
+        out = host_library_path(source)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", str(tmp), str(source)]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+            except (OSError, subprocess.TimeoutExpired) as exc:
+                raise RuntimeError(f"host build failed: {source}: {exc}") from exc
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"host build failed: {source} (exit {proc.returncode}):\n{proc.stderr}"
+                )
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        lib = ctypes.CDLL(str(out))
+        _LIBS[key] = lib
     return lib

@@ -11,9 +11,19 @@ differentiable in ``xw``, ``wh`` and ``bh``.
 
 On CUDA tensors the forward launches ``csrc/gru_fwd.cu`` and the backward
 ``csrc/gru_bwd.cu``; each source's header says what bounds it and how it is
-laid out. On CPU tensors the forward runs :func:`gru_scan_plain` and the
-backward :func:`gru_scan_bwd_plain`, the same functions written out as
-Python loops over T. There is no fallback from one to the other. Both
+laid out.
+
+``xw``, ``wh`` and ``bh`` are all float32 or all bfloat16 (the
+``compute_dtype="bfloat16"`` path); the mask is float32 either way. In
+bfloat16 the contract is the Pallas kernel's: every value is widened to
+float32 where it is read, the products, gates and carried state are
+float32, and only the outputs (y, h_fin; dxw, dW_h, db_h) are rounded to
+bfloat16, dW_h and db_h from float32 sums over every (b, t). Each dtype
+has its own kernel instantiation and its own launch counter.
+
+On CPU tensors the forward runs :func:`gru_scan_plain` and the backward
+:func:`gru_scan_bwd_plain`, the same functions written out as Python loops
+over T. There is no fallback from one to the other. Both
 directions go through one ``torch.autograd.Function``, which saves
 ``(xw, wh, bh, mask, y)`` as the reference's ``_fused_fwd`` does: the
 backward recomputes the gates from ``(xw_t, y_{t-1})``.
@@ -29,11 +39,14 @@ import torch
 from ikea_recommender_tpu_torch.ops import build
 
 # Launches of each CUDA kernel, counted where it is launched and nowhere else.
-LAUNCHES = 0  # B3, gru_fwd
-BWD_LAUNCHES = 0  # B4, gru_bwd
+LAUNCHES = 0  # B3, gru_fwd on float32
+BWD_LAUNCHES = 0  # B4, gru_bwd on float32
+LAUNCHES_BF16 = 0  # B3 on bfloat16, gru_fwd_bf16
+BWD_LAUNCHES_BF16 = 0  # B4 on bfloat16, gru_bwd_bf16
 
-_FN = None
-_BWD_FN = None
+DTYPES = (torch.float32, torch.bfloat16)
+
+_FNS = {}
 
 
 def gru_scan_plain(
@@ -45,7 +58,11 @@ def gru_scan_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence as a plain loop over T, mirroring
     ``ikea_recommender_tpu/models/gru.py::_gru_scan``. Returns
-    (output_seq (B, T, H), final_h (B, H))."""
+    (output_seq (B, T, H), final_h (B, H)). bfloat16 inputs are widened, the
+    loop runs in float32 and only the outputs are rounded back, as the
+    Pallas kernel does."""
+    dtype = xw.dtype
+    xw, wh, bh = xw.float(), wh.float(), bh.float()
     B, T, H3 = xw.shape
     H = H3 // 3
     h = xw.new_zeros((B, H))
@@ -62,7 +79,7 @@ def gru_scan_plain(
             h_new = torch.where(mask[:, t, None] > 0, h_new, h)
         h = h_new
         ys[t] = h
-    return torch.stack(ys, dim=1), h
+    return torch.stack(ys, dim=1).to(dtype), h.to(dtype)
 
 
 def gru_scan_bwd_plain(
@@ -80,7 +97,11 @@ def gru_scan_bwd_plain(
     steps in the opposite order of the forward, recomputes the gates from
     ``(xw_t, h_prev)`` with ``h_prev`` the forward's previous output (zero at
     its first step), and routes ``dh`` past steps the mask froze. Returns
-    (dxw (B, T, 3H), dwh (H, 3H), dbh (3H,))."""
+    (dxw (B, T, 3H), dwh (H, 3H), dbh (3H,)). bfloat16 inputs are widened
+    (``h_prev`` is the stored bfloat16 ``y``), the loop runs in float32 and
+    only the outputs are rounded back."""
+    dtype = xw.dtype
+    xw, wh, bh, y, gy, g_hfin = (t.float() for t in (xw, wh, bh, y, gy, g_hfin))
     B, T, H3 = xw.shape
     H = H3 // 3
     dxw = torch.empty_like(xw)
@@ -116,7 +137,7 @@ def gru_scan_bwd_plain(
         dwh += h_prev.T @ dhw
         dbh += dhw.sum(dim=0)
         dh = dh_t * z + dhw @ wh.T + dh_skip
-    return dxw, dwh, dbh
+    return dxw.to(dtype), dwh.to(dtype), dbh.to(dtype)
 
 
 def _check(xw, wh, bh, mask) -> None:
@@ -125,9 +146,14 @@ def _check(xw, wh, bh, mask) -> None:
         raise ValueError(
             f"gru_scan: inputs on different devices {[str(t.device) for t in tensors]}"
         )
+    if xw.dtype not in DTYPES or {wh.dtype, bh.dtype} != {xw.dtype}:
+        raise TypeError(
+            "gru_scan takes xw, wh and bh all float32 or all bfloat16, got "
+            f"{xw.dtype}, {wh.dtype}, {bh.dtype}"
+        )
+    if mask is not None and mask.dtype != torch.float32:
+        raise TypeError(f"gru_scan takes a float32 mask, got {mask.dtype}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"gru_scan takes float32 tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("gru_scan takes contiguous tensors")
     if xw.dim() != 3 or xw.shape[2] % 3:
@@ -149,33 +175,26 @@ def _check(xw, wh, bh, mask) -> None:
         raise ValueError(f"the gru kernels take H <= 1024, got H={H}")
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = build.load("gru_fwd").gru_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _entry(source: str, dtype: torch.dtype, n_ptrs: int):
+    """The C entry of ``csrc/<source>.cu`` for ``dtype`` (``<source>`` or
+    ``<source>_bf16``): n_ptrs pointers, 4 ints, the stream."""
+    key = (source, dtype)
+    if key not in _FNS:
+        lib = build.load(source)
+        fn = getattr(lib, source if dtype == torch.float32 else f"{source}_bf16")
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def _bwd_kernel_fn():
-    global _BWD_FN
-    if _BWD_FN is None:
-        fn = build.load("gru_bwd").gru_bwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BWD_FN = fn
-    return _BWD_FN
+        _FNS[key] = fn
+    return _FNS[key]
 
 
 def _launch(xw, wh, bh, mask, reverse):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     B, T, H3 = xw.shape
     H = H3 // 3
-    fn = _kernel_fn()
-    y = torch.empty((B, T, H), dtype=torch.float32, device=xw.device)
-    hfin = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    fn = _entry("gru_fwd", xw.dtype, 6)
+    y = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
+    hfin = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
     with torch.cuda.device(xw.device):
         err = fn(
             xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
@@ -186,19 +205,29 @@ def _launch(xw, wh, bh, mask, reverse):
         )
     if err != 0:
         raise RuntimeError(f"gru_fwd kernel launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    if xw.dtype == torch.float32:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_BF16 += 1
     return y, hfin
 
 
 def _launch_bwd(xw, wh, bh, mask, y, gy, g_hfin, reverse):
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_LAUNCHES_BF16
     B, T, H3 = xw.shape
     H = H3 // 3
-    fn = _bwd_kernel_fn()
+    if {y.dtype, gy.dtype, g_hfin.dtype} != {xw.dtype}:
+        raise TypeError(
+            f"gru_bwd: y, gy and g_hfin must be {xw.dtype}, got "
+            f"{y.dtype}, {gy.dtype}, {g_hfin.dtype}"
+        )
+    fn = _entry("gru_bwd", xw.dtype, 10)
     dev = xw.device
     dxw = torch.empty_like(xw)
-    dhw = torch.empty_like(xw)  # scratch: the step adjoints [da_r, da_z, dhn]
-    dwb = torch.empty((H + 1, H3), dtype=torch.float32, device=dev)  # [dW_h; db_h]
+    # scratch, float32 in both dtypes: the step adjoints [da_r, da_z, dhn],
+    # which dW_h and db_h sum in float32
+    dhw = torch.empty(xw.shape, dtype=torch.float32, device=dev)
+    dwb = torch.empty((H + 1, H3), dtype=xw.dtype, device=dev)  # [dW_h; db_h]
     with torch.cuda.device(dev):
         err = fn(
             xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
@@ -210,7 +239,10 @@ def _launch_bwd(xw, wh, bh, mask, y, gy, g_hfin, reverse):
         )
     if err != 0:
         raise RuntimeError(f"gru_bwd kernel launch failed with CUDA error {err}")
-    BWD_LAUNCHES += 1
+    if xw.dtype == torch.float32:
+        BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES_BF16 += 1
     return dxw, dwb[:H], dwb[H]
 
 
@@ -249,7 +281,9 @@ def gru_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the recurrence; returns (output_seq (B, T, H), final_h (B, H)).
 
-    All inputs are float32, contiguous and on one device. CPU tensors take
+    ``xw``, ``wh`` and ``bh`` are all float32 or all bfloat16 (outputs and
+    gradients in the same dtype), the mask float32; all contiguous and on
+    one device. CPU tensors take
     the plain twins; CUDA tensors launch the kernels or raise. ``reverse``
     walks t from T-1 down to 0 and leaves y at its own t, as
     ``gru_scan_pallas(reverse=True)`` does by flipping. Gradients flow to

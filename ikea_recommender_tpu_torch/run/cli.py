@@ -41,6 +41,8 @@ def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (compute_dtype) reduce split-K partials in fp32, not bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = load_experiment_config(args.filename)
     log_fn, close_fn = make_log_sinks(cfg)
     try:

@@ -11,6 +11,13 @@ order of fp32 sums (the twins' products are cuBLAS fp32 with TF32 off) and
 in expf/tanhf against torch's exp/sigmoid/tanh. Tolerances:
 - B3 (gru_fwd): atol and rtol 1e-5 (outputs of order 1); where a block's rows
   are all masked, h carried bit for bit;
+- B3 and B4 on bfloat16 tensors (``compute_dtype="bfloat16"``): both sides
+  compute in fp32 and round only their outputs, so an output differs by at
+  most one bf16 step where the two fp32 values straddle a rounding
+  boundary: one step is at most 2 * 2^-8 (bf16's unit roundoff) of the
+  value, and the fp32 gate's 1e-5 of the largest entry is added for values
+  that cancel (y, h_fin, dxw elementwise; dW_h and db_h one step of the
+  leaf's largest entry);
 - B4 (gru_bwd) and B1/B2 (fused_ce): max |kernel - twin| at most 1e-5
   times max |twin| for each output. dW_h, dh and dW sum up to ~10^4 to
   ~10^5 terms, so the bound scales with the output's size. B2's dW and db
@@ -132,6 +139,21 @@ def _assert_close(got, want, name, tol=1e-5):
     err = (got - want).abs().max().item()
     bound = tol * want.abs().max().item()
     assert err <= bound, f"{name}: max abs err {err:.3g} > {bound:.3g}"
+
+
+BF16_STEP = 2 * 2.0**-8  # one bf16 step, at most, relative to the value
+
+
+def _assert_bf16_close(got, want, name, leaf=False):
+    """Within one bf16 step of each value (``leaf``: of the largest entry),
+    plus the fp32 gate's 1e-5 of the largest entry."""
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    top = want.abs().max()
+    bound = (BF16_STEP * (top if leaf else want.abs())) + 1e-5 * top
+    excess = ((got - want).abs() - bound).max().item()
+    assert excess <= 0, f"{name}: {excess:.3g} past one bf16 step"
 
 
 def _off_label(labels, A, valid):
@@ -282,6 +304,82 @@ def test_gru_scan_autograd_runs_both_kernels(cuda_device, masked, reverse):
     want = gru_scan_bwd_plain(xw, wh, bh, mask, y_p, gy, ghf, reverse)
     for leaf, w, name in zip(leaves, want, ("xw", "wh", "bh")):
         _assert_close(leaf.grad, w, name)
+
+
+BF16_SHAPES = [  # (B, T, H, masked, reverse) on bfloat16 tensors: each layout of
+    # B3 and B4, 16-byte copies where H % 8 == 0, plain 2-byte loads else
+    (256, 10, 64, True, False),  # the train point
+    (512, 10, 64, True, False),  # the serving point
+    (2000, 10, 64, True, False),  # the eval batch
+    (256, 20, 128, True, True),  # the bidir point at state 20, reverse
+    (256, 20, 128, True, False),
+    (256, 10, 64, False, False),  # unmasked
+    (256, 50, 256, False, False),  # W_h from L2
+    (37, 7, 60, True, True),  # H % 8 != 0 (H % 4 == 0): no 16-byte copy in bf16
+    (9, 4, 100, True, False),  # H % 8 != 0, W_h in shared memory
+    (7, 3, 37, True, False),  # 3H odd: rows end mid-word
+    (5, 3, 131, True, True),  # 3H odd, W_h from L2
+    (64, 1, 64, True, False),  # T = 1
+]
+
+
+def _bf16_case(B, T, H, masked, device):
+    xw, wh, bh, mask = to_torch(*gru_inputs(B, T, H, seed=B + T + H, masked=masked),
+                                device=device)
+    return xw.bfloat16(), wh.bfloat16(), bh.bfloat16(), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,masked,reverse", BF16_SHAPES)
+def test_gru_bf16_matches_twin(cuda_device, B, T, H, masked, reverse):
+    """B3 and B4 on bfloat16 tensors against the bfloat16 twins, the
+    backward on the kernel forward's own y; counted on the bf16 counters
+    only; two launches of each bit for bit."""
+    xw, wh, bh, mask = _bf16_case(B, T, H, masked, cuda_device)
+    before = (gru_cuda.LAUNCHES, gru_cuda.BWD_LAUNCHES, gru_cuda.LAUNCHES_BF16,
+              gru_cuda.BWD_LAUNCHES_BF16)
+    y, h = gru_scan(xw, wh, bh, mask, reverse=reverse)
+    again = gru_scan(xw, wh, bh, mask, reverse=reverse)
+    torch.cuda.synchronize()
+    y_p, h_p = gru_scan_plain(xw, wh, bh, mask, reverse=reverse)
+    _assert_bf16_close(y, y_p, "y")
+    _assert_bf16_close(h, h_p, "h_fin")
+    assert torch.equal(y, again[0]) and torch.equal(h, again[1])
+
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    gy = torch.randn(B, T, H, device=cuda_device, generator=g).bfloat16()
+    ghf = torch.randn(B, H, device=cuda_device, generator=g).bfloat16()
+    got = gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
+    twice = gru_cuda._launch_bwd(xw, wh, bh, mask, y, gy, ghf, reverse)
+    torch.cuda.synchronize()
+    want = gru_scan_bwd_plain(xw, wh, bh, mask, y, gy, ghf, reverse)
+    for a, w, name in zip(got, want, ("dxw", "dwh", "dbh")):
+        _assert_bf16_close(a, w, name, leaf=name != "dxw")
+    for a, b, name in zip(got, twice, ("dxw", "dwh", "dbh")):
+        assert torch.equal(a, b), name
+    after = (gru_cuda.LAUNCHES, gru_cuda.BWD_LAUNCHES, gru_cuda.LAUNCHES_BF16,
+             gru_cuda.BWD_LAUNCHES_BF16)
+    assert after == (before[0], before[1], before[2] + 2, before[3] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked,reverse", [(True, False), (False, True)])
+def test_gru_scan_bf16_autograd(cuda_device, masked, reverse):
+    """bfloat16 leaves under autograd: both bf16 kernels run, the gradients
+    come back in bfloat16 and match the twins'."""
+    B, T, H = 64, 12, 64
+    xw, wh, bh, mask = _bf16_case(B, T, H, masked, cuda_device)
+    gy = torch.randn(B, T, H, device=cuda_device).bfloat16()
+    ghf = torch.randn(B, H, device=cuda_device).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (xw, wh, bh)]
+    before = (gru_cuda.LAUNCHES_BF16, gru_cuda.BWD_LAUNCHES_BF16)
+    y, h = gru_scan(*leaves, mask, reverse=reverse)
+    torch.autograd.backward((y, h), (gy, ghf))
+    torch.cuda.synchronize()
+    assert (gru_cuda.LAUNCHES_BF16, gru_cuda.BWD_LAUNCHES_BF16) == (before[0] + 1, before[1] + 1)
+    want = gru_scan_bwd_plain(xw, wh, bh, mask, y.detach(), gy, ghf, reverse)
+    for leaf, w, name in zip(leaves, want, ("xw", "wh", "bh")):
+        _assert_bf16_close(leaf.grad, w, name, leaf=name != "xw")
 
 
 @pytest.mark.cuda

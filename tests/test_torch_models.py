@@ -118,9 +118,3 @@ def test_lazy_action_major_heads_raise(model, head, key):
         assert torch.equal(k, b)
 
 
-def test_bfloat16_compute_raises():
-    mc, _ = _configs(model="gru4rec", compute_dtype="bfloat16")
-    params = params_from_numpy(numpy_init_params(mc, 0), "cpu")
-    states, lens = _batch(0)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        families.apply_model(params, mc, torch.tensor(states), torch.tensor(lens))
