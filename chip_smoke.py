@@ -156,7 +156,32 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    as fp32) and its best model serves 512 val sessions. Between the eval
    and the trainer phases, one gru4rec eval pass in bf16 is held to the
    bf16 plain recurrence as the bf16 serving phase holds its batches.
-   Afterwards neither jax nor the reference package may be loaded.
+   Afterwards neither jax nor the reference package may be loaded;
+11. mesh (ROADMAP A.9a): the (data, model) mesh on the one card. First, in
+   this process, the shard contract: B1, B2, B5 and B6 launched on each
+   column shard of 2 and of 4 (widths 35426 and 17713) as rank r of n
+   launches them (``local_valid``, labels shifted by the shard's offset,
+   so negative past their owner and at least the width before it), and
+   once with a last shard of padding only; merged by
+   ``parallel/fused_ce.py::ce_from_shards`` and
+   ``parallel/q_kernels.py::argmax_from_shards`` and held to the kernel on
+   the whole head (lse and label logit within 1e-5, dh and each shard's dW
+   and db within 1e-5 of the leaf's largest, ids where the two best differ
+   by more than 1e-5, the maxima), and ties over a shard edge to the lower
+   global id. Then ranks in processes of their own on the card, over gloo
+   with CUDA tensors: (1, 2) trains gru4rec, bidir_gru4rec (H 128), sqn,
+   smorl and sarm at the RetailRocket width (the model aligned to 2: 70854
+   embedding rows), (2, 2) gru4rec and smorl, each 3 steps held to the
+   same steps in this process (losses 1e-4, first-step gradients and
+   first moments 1e-4 of each leaf's largest, params lr / 1000 where the
+   gradients are clear), then 10 timed steps whose launches on every rank
+   must be ``PER_STEP``'s (B1, B2 per shard a step; B5, B6) and whose
+   collective calls and bytes per step are printed ("[mesh]": ms per step
+   on a card the ranks share, not a multi-GPU speed); which collectives
+   gloo runs on CUDA tensors; ``Recommender(mesh=)`` serves 512 sessions
+   and ``EvalProtocol(mesh=)`` scores 20011 rows at 2000, held to one
+   process as phases 4 and 9 hold theirs; and one rank over nccl (a (1, 1)
+   mesh: one ``all_reduce``, the gru4rec steps). No rank may load jax.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
@@ -168,6 +193,7 @@ and the yardstick's time; the last line is
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2764,6 +2790,612 @@ def trainer_jsonl(tmp, yaml_path, bufs, n_b, n_val, n_test, smi):
                 yaml_bf16, bufs["val_buf"], "gru4rec bf16", b3="B3 gru_fwd bf16")}
 
 
+# -- 11. the mesh: (data, model) ranks sharing the card ------------------------
+
+# The mesh phase's width: RetailRocket's (bench.py:57-139), bidir_gru4rec at
+# BidirGRU-128's (H 128, lr 0.0005, dropout 0.35); "high", fp32 Adam. The
+# model is built with align = 2 (the model axis of both meshes): 70853
+# embedding rows pad to 70854, the 70852 actions need none.
+MESH_DEVICE = "cuda"
+MESH_A, MESH_B, MESH_T, MESH_CHECK, MESH_TIMED = 70852, 256, 10, 3, 10
+MESH_COINS = (0, 1, 1)
+MESH_POINTS = {"gru4rec": dict(H=64, lr=0.01, dropout=0.0),
+               "bidir_gru4rec": dict(H=128, lr=0.0005, dropout=0.35),
+               "sqn": dict(H=64, lr=0.01, dropout=0.0), "smorl": dict(H=64, lr=0.01, dropout=0.0),
+               "sarm": dict(H=64, lr=0.01, dropout=0.0)}
+# (spec, the families trained on it); each rank of a spec runs them in order
+MESH_RUNS = {(1, 2): ("gru4rec", "bidir_gru4rec", "sqn", "smorl", "sarm"),
+             (2, 2): ("gru4rec", "smorl")}
+MESH_FLOOR = 0.1  # least share of the moved param entries whose gradients are clear
+# A rank's collectives give up after MESH_PG_TIMEOUT_S; a rank still
+# running after MESH_TIMEOUT_S prints its threads' stacks and exits; the
+# parent waits MESH_TIMEOUT_S + 60 s for each rank's result.
+MESH_PG_TIMEOUT_S, MESH_TIMEOUT_S = 120, 540
+
+
+def mesh_config(family):
+    from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
+    from ikea_recommender_tpu_torch.models.families import model_config_from_train
+
+    pt = MESH_POINTS[family]
+    tc = TrainConfig(model=family, batch_size=MESH_B, embedding_size=64,
+                     hidden_state_size=pt["H"], state_size=MESH_T, learning_rate=pt["lr"],
+                     dropout=pt["dropout"], fused_ce=True, head_precision="high")
+    mc = model_config_from_train(tc, DataConfig(num_items=MESH_A), align=2)
+    if not (mc.fused_ce and mc.padded_action_dim % 4 == 0):
+        fail(f"mesh {family}: the fused CE and an action dim both meshes divide")
+    return mc
+
+
+def mesh_inputs(family, mc):
+    """Seeded (numpy params or pair, smorl's aux, batches): the checked
+    batches, the last with a padded tail of 56 rows (all on the second
+    data rank of (2, 2)), then a warm-up and the timed ones."""
+    from ikea_recommender_tpu_torch.convert import numpy_init_double_q, numpy_init_params
+
+    double_q = family in ("sqn", "smorl")
+    params = numpy_init_double_q(mc, (0, 1)) if double_q else numpy_init_params(mc, seed=0)
+    rs = np.random.RandomState(5)
+    aux = {}
+    if family == "smorl":
+        aux = {"div_embedding": rs.randn(MESH_A + 1, 64).astype(np.float32),
+               "unpopular_mask": np.arange(MESH_A) % 10 == 0}
+    batches = [bench_batch(rs, MESH_B, MESH_A, MESH_T)
+               for _ in range(MESH_CHECK + 1 + MESH_TIMED)]
+    batches[MESH_CHECK - 1]["valid"][200:] = False
+    return params, aux, batches
+
+
+def mesh_run(family, mesh=None, timed=False):
+    """The family's steps on this rank of ``mesh`` (None: one process on the
+    card): first-step gradients, MESH_CHECK steps (double-Q: coins
+    MESH_COINS), each step's losses and first moments and the last params,
+    gathered; with ``timed``, a warm-up and MESH_TIMED steps whose launches
+    and collectives are counted from 0 and each timed to a synchronize."""
+    from ikea_recommender_tpu_torch.convert import params_from_numpy
+    from ikea_recommender_tpu_torch.core.distributed import local_rows
+    from ikea_recommender_tpu_torch.parallel.sharding import gather_tree, shard_state
+    from ikea_recommender_tpu_torch.train.state import make_double_q_state, make_train_state
+    from ikea_recommender_tpu_torch.train.steps import (
+        RLStepConfig,
+        double_q_loss_and_grads,
+        loss_and_grads,
+        make_train_step,
+        sarm_loss_and_grads,
+    )
+
+    mc = mesh_config(family)
+    np_params, aux, batches = mesh_inputs(family, mc)
+    lr, dev = MESH_POINTS[family]["lr"], MESH_DEVICE
+    double_q = family in ("sqn", "smorl")
+    if double_q:
+        state, opt = make_double_q_state([params_from_numpy(p, dev) for p in np_params], mc,
+                                         lr, device=dev)
+        full = list(np_params)
+    else:
+        state, opt = make_train_state(params_from_numpy(np_params, dev), mc, lr, device=dev)
+        full = [np_params]
+    kw = {}
+    if mesh is not None:
+        state = shard_state(state, mesh)
+        kw = dict(mesh=mesh, data_axis="data")
+        batches = [local_rows(b, mesh) for b in batches]
+    step = make_train_step(mc, opt, RLStepConfig(), device=dev, **kw, **aux)
+    rl = RLStepConfig()
+
+    def on(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    def gathered(tree, like):
+        if mesh is not None:
+            tree = gather_tree(tree, mesh, like)
+        return {k: v for k, v in named_leaves(tree).items()}
+
+    nets = lambda s: list(s.params) if double_q else [s.params]  # noqa: E731
+    moments = lambda s: [o.mu for o in s.opt_state] if double_q else [s.opt_state.mu]  # noqa
+    if double_q:
+        grads = double_q_loss_and_grads(state.params, on(batches[0]), mc, rl, MESH_COINS[0],
+                                        step.aux, **kw)[1]
+    elif family == "sarm":
+        grads = sarm_loss_and_grads(state.params, on(batches[0]), mc, rl, **kw)[1]
+    else:
+        grads = loss_and_grads(state.params, on(batches[0]), mc, state.generator, **kw)[1]
+    out = {"grads": gathered(grads, full[MESH_COINS[0] if double_q else 0]), "losses": [],
+           "mu": [[gathered(m, f) for m, f in zip(moments(state), full)]]}
+    for k, b in enumerate(batches[:MESH_CHECK]):
+        state, m = step(state, b, **({"coin": MESH_COINS[k]} if double_q else {}))
+        out["losses"].append((m["sup_loss"].item(), m["q_loss"].item()))
+        if mesh is None:  # each step's moments: the gradients mesh_hold reads
+            out["mu"].append([gathered(mu, f) for mu, f in zip(moments(state), full)])
+    if mesh is not None:  # a mesh sends only the last moments
+        out["mu"] = [[gathered(mu, f) for mu, f in zip(moments(state), full)]]
+    out["params"] = [gathered(p, f) for p, f in zip(nets(state), full)]
+    if timed:
+        state, _ = step(state, batches[MESH_CHECK])
+        torch.cuda.synchronize()
+        reset_counters()
+        mesh.reset_counts()
+        step_ms = []
+        for b in batches[MESH_CHECK + 1:]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.update(step_ms=step_ms, launches=counters(), collectives=mesh.counts(),
+                   last_loss=m["sup_loss"].item())
+    if mesh is not None and mesh.rank != 0:  # rank 0 returns the gathered trees
+        out = {k: v for k, v in out.items() if k not in ("grads", "mu", "params")}
+    return out
+
+
+def mesh_serving(mesh=None):
+    """One batch of 512 seeded sessions of gru4rec through Recommender (on
+    ``mesh``: this rank's slice) -> top-11 values and ids."""
+    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.parallel.sharding import shard_tree
+    from ikea_recommender_tpu_torch.run.serve import Recommender
+
+    mc = mesh_config("gru4rec")
+    np_params = numpy_init_params(mc, seed=0)
+    rs = np.random.RandomState(6)
+    states = rs.randint(0, MESH_A + 1, (512, MESH_T)).astype(np.int32)
+    lens = rs.randint(1, MESH_T + 1, 512).astype(np.int32)
+    if mesh is None:
+        rec = Recommender(params_from_numpy(np_params, MESH_DEVICE), mc, device=MESH_DEVICE)
+    else:
+        rec = Recommender(shard_tree(np_params, mesh), mc, mesh=mesh, device=MESH_DEVICE)
+    if not rec.fused:
+        fail("mesh serving: the model-sharded head must take the fused scan")
+    v, i = rec.recommend(states, lens, k=11)
+    return v.cpu(), i.cpu()
+
+
+def mesh_eval(actions=None, mesh=None):
+    """gru4rec's EvalProtocol over EVAL_ROWS rows at EVAL_BATCH (on
+    ``mesh``: this rank's slice) -> (per batch top-21 values, ids, CE,
+    labels, valid on the host; the result; the protocol). ``actions``: the
+    labels (default: the buffer's)."""
+    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.core.config import MetricsConfig
+    from ikea_recommender_tpu_torch.eval.protocol import EvalProtocol
+    from ikea_recommender_tpu_torch.parallel.sharding import shard_tree
+
+    mc = mesh_config("gru4rec")
+    np_params = numpy_init_params(mc, seed=0)
+    rs = np.random.RandomState(2)
+    buf = eval_buffer(MESH_A, MESH_T, EVAL_ROWS, rs)
+    if actions is not None:
+        buf.action = actions
+    m = MetricsConfig()
+    proto = EvalProtocol(mc, topk_hr_ndcg=m.topk_hr_ndcg, topk_cov=m.topk_cov,
+                         topk_div=m.topk_div, topk_nov=m.topk_nov, nov_rew_sig=m.nov_rew_sig,
+                         div_embedding=rs.randn(MESH_A + 1, 64).astype(np.float32),
+                         unpopular_mask=np.arange(MESH_A) % 10 == 0, mesh=mesh,
+                         device=MESH_DEVICE)
+    if mesh is None:
+        params = params_from_numpy(np_params, MESH_DEVICE)
+    else:
+        params = shard_tree(np_params, mesh)
+    scores = [tuple(x.cpu() for x in s) for s in eval_scores(proto, params, buf, 21)]
+    return scores, proto.evaluate(params, buf, EVAL_BATCH), proto
+
+
+def mesh_probe(mesh):
+    """Which collectives the mesh's backend runs on tensors on its device:
+    {name: "ok" or the error}."""
+    import torch.distributed as dist
+
+    group = mesh.groups["model"]
+    x = torch.ones(4, device=MESH_DEVICE)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "all_reduce max": lambda: dist.all_reduce(x.clone(), dist.ReduceOp.MAX, group=group),
+        "all_reduce min": lambda: dist.all_reduce(x.clone(), dist.ReduceOp.MIN, group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=mesh.rank - mesh.index("model"),
+                                            group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x,
+                                              group=group),
+        "reduce_scatter": lambda: dist.reduce_scatter(torch.empty(2, device=MESH_DEVICE),
+                                                      list(x.split(2)), group=group),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:  # recorded, not used: the port reduces
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    torch.cuda.synchronize()
+    return out
+
+
+def host_tree(tree, fn):
+    """``fn`` on every tensor (or array) of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_tree(v, fn) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    return tree
+
+
+def pack_arrays(tree, path):
+    """``tree`` with each tensor saved to the ``.npy`` files of directory
+    ``path`` and replaced by its file's name. A rank's results cross to the
+    parent so: a pipe moves ~1.5 GB of gathered params too slowly to
+    finish, and a tensor sent through one is shared by a handle that its
+    rank takes with it when it exits."""
+    os.makedirs(path, exist_ok=True)
+    count = iter(range(1 << 30))
+
+    def save(t):
+        name = os.path.join(path, f"{next(count)}.npy")
+        np.save(name, t.detach().cpu().numpy())
+        return ("npy", name)
+
+    return host_tree(tree, save)
+
+
+def unpack_arrays(tree):
+    """The inverse of :func:`pack_arrays`, as CPU tensors."""
+    if isinstance(tree, tuple) and len(tree) == 2 and tree[0] == "npy":
+        return torch.from_numpy(np.load(tree[1]))
+    if isinstance(tree, dict):
+        return {k: unpack_arrays(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unpack_arrays(v) for v in tree)
+    return tree
+
+
+def mesh_log(msg):
+    print(f"[mesh] {msg}", file=sys.stderr, flush=True)
+
+
+def mesh_rank_main(rank, world, spec, backend, store, jobs, conn):
+    """One rank of a mesh on the card: the jobs in order -> the parent."""
+    import datetime
+    import faulthandler
+    import traceback
+
+    import torch.distributed as dist
+
+    faulthandler.dump_traceback_later(MESH_TIMEOUT_S, exit=True)
+    t0 = time.perf_counter()
+    try:
+        if backend == "nccl":  # one host: its bootstrap on the loopback interface
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        from ikea_recommender_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+        mesh = make_mesh(MeshSpec(*spec), backend, MESH_DEVICE)
+        out = {}
+        for job, arg in jobs:
+            mesh_log(f"{spec} rank {rank}: {job} {arg if isinstance(arg, str) else ''} at "
+                     f"{time.perf_counter() - t0:.1f} s")
+            if job == "probe":
+                out[job] = mesh_probe(mesh)
+            elif job == "train":
+                out[f"train {arg}"] = mesh_run(arg, mesh, timed=True)
+            elif job == "serve":
+                out[job] = mesh_serving(mesh)
+            elif job == "eval":  # one data index: every rank scores whole batches
+                scores, res, _ = mesh_eval(arg, mesh)
+                out[job] = (scores, res) if rank == 0 else None
+            elif job == "nccl":
+                mesh.reset_counts()
+                x = torch.ones(3, device=MESH_DEVICE)
+                dist.all_reduce(x)  # the default group, over nccl
+                out[job] = {"all_reduce": x.tolist(), "nccl": torch.cuda.nccl.version(),
+                            "step": mesh_run("gru4rec", mesh, timed=True)}
+        out["loaded"] = sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))
+        mesh_log(f"{spec} rank {rank}: done at {time.perf_counter() - t0:.1f} s")
+        conn.send(("ok", pack_arrays(out, f"{store}.rank{rank}")))
+        dist.destroy_process_group()
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def mesh_spawn(spec, backend, jobs):
+    """Every rank of ``spec`` in its own process on the one card, over
+    ``backend`` -> each rank's results; fails on any rank's error, stops
+    every process either way."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    world = spec[0] * spec[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"{tmp}/store"
+        procs, conns = [], []
+        try:
+            for rank in range(world):
+                parent, child = ctx.Pipe()
+                # daemonic: an exit never waits on a rank that will not end
+                p = ctx.Process(target=mesh_rank_main, daemon=True,
+                                args=(rank, world, spec, backend, store, jobs, child))
+                p.start()
+                procs.append(p)
+                conns.append(parent)
+            results = []
+            for rank, conn in enumerate(conns):
+                if not conn.poll(MESH_TIMEOUT_S + 60):
+                    fail(f"mesh {spec} rank {rank} gave no result in {MESH_TIMEOUT_S + 60} s")
+                status, value = conn.recv()
+                if status != "ok":
+                    fail(f"mesh {spec} rank {rank} failed:\n{value}")
+                value = unpack_arrays(value)
+                if value["loaded"]:
+                    fail(f"mesh {spec} rank {rank} loaded {value['loaded'][:5]}")
+                results.append(value)
+            return results
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+
+
+def mesh_shard_contract():
+    """B1, B2, B5 and B6 launched on each column shard as rank r of n runs
+    them (``local_valid``, labels shifted by the shard's offset: negative
+    past their owner, at least the shard's width before it), merged by the
+    port's functions, held to the same kernel on the whole head. Returns
+    the cases' worst errors."""
+    from ikea_recommender_tpu_torch.ops.fused_argmax import (
+        fused_linear_argmax,
+        fused_weighted_multihead_argmax,
+        head_values_plain,
+    )
+    from ikea_recommender_tpu_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from ikea_recommender_tpu_torch.ops.fused_topk import order_keys
+    from ikea_recommender_tpu_torch.parallel.fused_ce import ce_from_shards
+    from ikea_recommender_tpu_torch.parallel.q_kernels import argmax_from_shards
+
+    A, B, F, P = MESH_A, MESH_B, 64, "high"
+    rs = np.random.RandomState(11)
+    dev = MESH_DEVICE
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    h = t(rs.randn(B, F).astype(np.float32))
+    w = t((rs.randn(F, A) * 0.125).astype(np.float32))
+    b = t((rs.randn(A) * 0.05).astype(np.float32))
+    wq = t((rs.randn(3, F, A) * 0.125).astype(np.float32))
+    bq = t((rs.randn(3, A) * 0.05).astype(np.float32))
+    qw = t(np.asarray([1.0, 0.5, 2.0], np.float32))
+    ct = t(rs.rand(B).astype(np.float32))
+    errs = {"lse": 0.0, "label": 0.0, "dh": 0.0, "dW": 0.0, "db": 0.0, "max": 0.0}
+    # (n, valid): whole catalogs of 2 and 4 shards (35426, 17713 columns),
+    # and one whose last shard of 4 is all padding
+    for n, valid in ((2, A), (4, A), (4, 3 * (A // 4) - 100)):
+        S = A // n
+        labels = rs.randint(0, valid, B)
+        edges = [e for r in range(1, n) for e in (r * S - 1, r * S) if e < valid]
+        labels[: len(edges)] = edges  # a label on each side of every shard edge
+        labels = t(labels.astype(np.int64))
+        lse_f, lbl_f = fused_ce_fwd(h, w, b, labels, valid, P)
+        dh_f, dw_f, db_f = fused_ce_bwd(h, w, b, labels, lse_f, ct, valid, P)
+        shards = []
+        for r in range(n):
+            cols = slice(r * S, (r + 1) * S)
+            local_valid = min(max(valid - r * S, 0), S)
+            shards.append((w[:, cols].contiguous(), b[cols].contiguous(), labels - r * S,
+                           local_valid, cols))
+        outs = [fused_ce_fwd(h, ws, bs, lab, lv, P) for ws, bs, lab, lv, _ in shards]
+        lse, lbl = ce_from_shards(torch.stack([o[0] for o in outs]),
+                                  torch.stack([o[1] for o in outs]))
+        what = f"shard contract n={n} valid={valid}"
+        if not (torch.isfinite(lse).all() and torch.isfinite(lbl).all()):
+            fail(f"{what}: the merged lse or label logit is not finite")
+        errs["lse"] = max(errs["lse"], (lse - lse_f).abs().max().item())
+        errs["label"] = max(errs["label"], (lbl - lbl_f).abs().max().item())
+        dh = torch.zeros_like(dh_f)
+        for ws, bs, lab, lv, cols in shards:  # B2 per shard with the global lse
+            dh_s, dw_s, db_s = fused_ce_bwd(h, ws, bs, lab, lse, ct, lv, P)
+            dh += dh_s
+            for name, got, want in (("dW", dw_s, dw_f), ("db", db_s, db_f)):
+                if not torch.isfinite(got).all():
+                    fail(f"{what}: a shard's {name} is not finite")
+                errs[name] = max(errs[name], (got - want[..., cols]).abs().max().item()
+                                 / want.abs().max().item())
+        errs["dh"] = max(errs["dh"], rel_err(dh, dh_f))
+        if max(errs["lse"], errs["label"]) > 1e-5 or max(errs["dh"], errs["dW"], errs["db"]) > 1e-5:
+            fail(f"{what}: B1/B2 per shard against the whole head: {errs}")
+        # B5 and B6 with their maxima, merged by key
+        for multi in (False, True):
+            if multi:
+                full_i, full_m = fused_weighted_multihead_argmax(h, wq, bq, qw, valid, P,
+                                                                 with_max=True)
+                plain = head_values_plain(h, wq, bq, valid, P, qw)
+            else:
+                full_i, full_m = fused_linear_argmax(h, wq[0], bq[0], valid, P, with_max=True)
+                plain = head_values_plain(h, wq[0], bq[0], valid, P)
+            keys, maxima = [], []
+            for r in range(n):
+                cols = slice(r * S, (r + 1) * S)
+                lv = min(max(valid - r * S, 0), S)
+                if multi:
+                    i_s, m_s = fused_weighted_multihead_argmax(
+                        h, wq[:, :, cols].contiguous(), bq[:, cols].contiguous(), qw, lv, P,
+                        with_max=True)
+                else:
+                    i_s, m_s = fused_linear_argmax(h, wq[0][:, cols].contiguous(),
+                                                   bq[0][cols].contiguous(), lv, P,
+                                                   with_max=True)
+                if not torch.isfinite(m_s).all():
+                    fail(f"{what}: a shard's max is not finite")
+                keys.append(order_keys(m_s, i_s + r * S))
+                maxima.append(m_s)
+            ids = argmax_from_shards(torch.stack(keys))
+            top2 = plain.topk(2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > GAP
+            if (clear & (ids != full_i)).any():
+                fail(f"{what}: {'B6' if multi else 'B5'} per shard picks another id")
+            errs["max"] = max(errs["max"], rel_err(torch.stack(maxima).amax(dim=0), full_m))
+            if errs["max"] > 1e-5:
+                fail(f"{what}: the shards' maxima differ from the whole head's")
+    # ties across a shard edge: integer operands, columns S - 1 and S (and
+    # the last valid one) the best of every row; the lower global id wins
+    hi = t(rs.randint(0, 3, (B, F)).astype(np.float32))
+    for n in (2, 4):
+        S = A // n
+        wt = rs.randint(-2, 3, (3, F, A)).astype(np.float32)
+        bt = rs.randint(-2, 3, (3, A)).astype(np.float32)
+        for c in (S - 1, S, A - 1):
+            wt[:, :, c], bt[:, c] = 9.0, 5.0
+        wt, bt = t(wt), t(bt)
+        for multi in (False, True):
+            keys = []
+            for r in range(n):
+                cols = slice(r * S, (r + 1) * S)
+                if multi:
+                    i_s, m_s = fused_weighted_multihead_argmax(
+                        hi, wt[:, :, cols].contiguous(), bt[:, cols].contiguous(), qw, S, P,
+                        with_max=True)
+                else:
+                    i_s, m_s = fused_linear_argmax(hi, wt[0][:, cols].contiguous(),
+                                                   bt[0][cols].contiguous(), S, P,
+                                                   with_max=True)
+                keys.append(order_keys(m_s, i_s + r * S))
+            if not (argmax_from_shards(torch.stack(keys)) == S - 1).all():
+                fail(f"tie over the edge of {n} shards: {'B6' if multi else 'B5'} merged "
+                     f"past the lowest global id {S - 1}")
+    print(f"[mesh] shard contract (n = 2, 4; shard widths {A // 2}, {A // 4}; a shard of "
+          f"padding only; labels shifted past each shard; ties over a shard edge): worst "
+          f"errors {errs} (lse, label: absolute; dh, dW, db, max: of the leaf's largest)")
+    return errs
+
+
+def mesh_hold(family, spec, got, ref):
+    """A mesh rank 0's checked run against the single-process one: losses
+    1e-4, first-step gradients and the last first moments 1e-4 of each
+    leaf's largest, params after the checked steps lr / 1000 over the
+    entries whose gradients (read off the single-process moments, at the
+    steps that trained the net) are 0 or above 1e-6 at every step."""
+    what = f"mesh {spec[0]}x{spec[1]} {family}"
+    loss_err = np.abs(np.asarray(got["losses"]) - np.asarray(ref["losses"])).max()
+    if not loss_err <= 1e-4:
+        fail(f"{what}: losses {got['losses']} against {ref['losses']}")
+    check_close([got["grads"][k] for k in ref["grads"]], list(ref["grads"].values()),
+                list(ref["grads"]), f"{what}: first-step gradients", 1e-4)
+    for g_mu, r_mu in zip(got["mu"][-1], ref["mu"][-1]):
+        check_close([g_mu[n] for n in r_mu], list(r_mu.values()), list(r_mu),
+                    f"{what}: first moments after {MESH_CHECK} steps", 1e-4)
+    lr = MESH_POINTS[family]["lr"]
+    compared = moved = 0
+    for net in range(len(ref["params"])):
+        trained = [k for k in range(MESH_CHECK)
+                   if len(ref["params"]) == 1 or MESH_COINS[k] == net]
+        for name, want in ref["params"][net].items():
+            g = torch.stack([(ref["mu"][k + 1][net][name] - 0.9 * ref["mu"][k][net][name]) / 0.1
+                             for k in trained])
+            mk = (g != 0).any(dim=0)
+            sure = mk & ((g == 0) | (g.abs() > 1e-6)).all(dim=0)
+            err = (got["params"][net][name] - want)[sure].abs().max().item() if sure.any() else 0
+            if err > lr / 1000:
+                fail(f"{what}: {name} differs by {err:.3g} > lr / 1000")
+            compared, moved = compared + int(sure.sum()), moved + int(mk.sum())
+    share = compared / max(moved, 1)
+    if share < MESH_FLOOR:
+        fail(f"{what}: only {compared} of {moved} moved entries compared")
+    return loss_err, share
+
+
+def phase_mesh(smi):
+    """The (data, model) mesh on the one card: the shard contract in this
+    process, then (1, 2) and (2, 2) meshes of ranks sharing the card over
+    gloo with CUDA tensors, held to this process's single-device runs, and
+    a (1, 1) mesh over nccl. Returns each mesh's timed launches."""
+    from ikea_recommender_tpu_torch.data.replay_buffer import num_batches
+
+    mesh_shard_contract()
+    t0 = time.perf_counter()
+    refs = {family: mesh_run(family) for family in MESH_RUNS[(1, 2)]}
+    ref_serve = mesh_serving()
+    scores, _, _ = mesh_eval()
+    # about half the labels at one of the row's top-20 ids
+    rs = np.random.RandomState(3)
+    top = torch.cat([i[valid] for _, i, _, _, valid in scores]).numpy()
+    actions = np.asarray(eval_buffer(MESH_A, MESH_T, EVAL_ROWS, np.random.RandomState(2)).action)
+    relabel = rs.rand(EVAL_ROWS) < 0.5
+    actions[relabel] = top[relabel, rs.randint(0, 20, EVAL_ROWS)[relabel]]
+    ref_scores, res_ref, proto = mesh_eval(actions)
+    mesh_log(f"the single-process runs: {time.perf_counter() - t0:.1f} s")
+
+    paths = {}
+    for spec, families in MESH_RUNS.items():
+        jobs = [("train", f) for f in families]
+        if spec == (1, 2):
+            jobs += [("serve", None), ("eval", actions)]
+        jobs.append(("probe", None))  # last: a collective that fails cannot upset the rest
+        t0 = time.perf_counter()
+        ranks = mesh_spawn(spec, "gloo", jobs)
+        wall = time.perf_counter() - t0
+        name = f"mesh {spec[0]}x{spec[1]}"
+        print(f"[mesh] {name} over gloo, CUDA tensors, {len(ranks)} ranks on one card: "
+              f"collectives {ranks[0]['probe']}; {wall:.1f} s from spawn to the last result")
+        total = {}
+        for family in families:
+            got = ranks[0][f"train {family}"]
+            loss_err, share = mesh_hold(family, spec, got, refs[family])
+            for r, out in enumerate(ranks):
+                run = out[f"train {family}"]
+                launches = {k: v for k, v in run["launches"].items() if v}
+                want = {k: v * MESH_TIMED for k, v in PER_STEP[family].items()}
+                if launches != want:
+                    fail(f"{name} rank {r} {family}: {MESH_TIMED} steps launched {launches}, "
+                         f"expected {want}")
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                per_step = {a: {k: v / MESH_TIMED for k, v in c.items()}
+                            for a, c in run["collectives"].items()}
+                ms = run["step_ms"]
+                print(f"[mesh] {name} rank {r} {family} A={MESH_A} H={MESH_POINTS[family]['H']} "
+                      f"T={MESH_T} B={MESH_B} (this rank's rows "
+                      f"{MESH_B // spec[0]}) high: {MESH_TIMED} steps, ms per step median "
+                      f"{float(np.median(ms)):.3f} (min {min(ms):.3f}, max {max(ms):.3f}) on "
+                      f"a card shared by {len(ranks)} ranks, not a multi-GPU speed; "
+                      f"collectives per step {per_step}; launches {launches}; held to one "
+                      f"process: losses within {loss_err:.3g}, params compared over {share:.3f} "
+                      f"of the moved entries; last loss {run['last_loss']}; {smi}")
+        paths[name] = total
+        if spec == (1, 2):
+            v, i = ranks[0]["serve"]
+            for r in ranks[1:]:
+                if not torch.equal(r["serve"][1], i):
+                    fail("mesh serving: the ranks' top-k ids differ")
+            check_topk(v, i, *ref_serve, 10, ref="the single-process Recommender")
+            scores, res = ranks[0]["eval"]
+            on = lambda batches: [tuple(x.to(MESH_DEVICE) for x in s) for s in batches]  # noqa
+            ref = "the single-process protocol"
+            moved = hold_eval_batches(on(scores), on(ref_scores), proto, ref)
+            hold_eval_result(res, res_ref, moved, proto, MESH_T, ref)
+            print(f"[mesh] {name} serving 512 sessions: top-11 equal to one process; eval "
+                  f"{EVAL_ROWS} rows in {num_batches(EVAL_ROWS, EVAL_BATCH)} batches of "
+                  f"{EVAL_BATCH}: loss {res.loss:.6f} HR {res.hr.tolist()} (one process "
+                  f"{res_ref.loss:.6f} {res_ref.hr.tolist()}); rows moved {moved}")
+    (nccl,) = mesh_spawn((1, 1), "nccl", [("nccl", None)])
+    got = nccl["nccl"]
+    if got["all_reduce"] != [1.0, 1.0, 1.0]:
+        fail(f"nccl all_reduce over one rank gave {got['all_reduce']}")
+    loss_err, _ = mesh_hold("gru4rec", (1, 1), got["step"], refs["gru4rec"])
+    print(f"[mesh] 1x1 over nccl {got['nccl']}: one all_reduce and the gru4rec steps held to one "
+          f"process (losses within {loss_err:.3g}); ms per step median "
+          f"{float(np.median(got['step']['step_ms'])):.3f}; {smi}")
+    paths["mesh 1x1 nccl"] = {k: v for k, v in got["step"]["launches"].items() if v}
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2791,6 +3423,7 @@ def main():
     paths["eval_bidir_gru4rec"] = phase_eval("bidir_gru4rec", smi, profile=profile)
     paths["eval bf16"] = phase_eval("gru4rec", smi, profile=profile, dtype="bfloat16")
     paths.update(phase_trainer(smi, profile=profile))
+    paths.update(phase_mesh(smi))
     # the card's machine has jax installed: show the port never loaded it
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))

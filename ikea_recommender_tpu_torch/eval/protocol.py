@@ -21,9 +21,20 @@ one scan giving the top-k ids and each sample's CE, so the (B, A) logits
 never exist; below, the dense logits give both. The backbone's recurrence
 is the B3 kernel on the card (``ops/gru_cuda.py``).
 
-Not ported: a device mesh (ROADMAP A.9), and the reference's
-``evaluate_device`` / ``_scanned_update``, the TPU's one-dispatch
-``lax.scan`` over a device-resident buffer.
+On a (data, model) mesh (``mesh``, ``core/mesh.py``) each rank holds its
+slice of the params (``parallel/sharding.py``) and scores its rows of each
+batch (``core/distributed.py::local_rows``): a model-sharded head takes the
+fused arm by default, the blockwise scan over the rank's columns merged by
+``parallel/topk.py::sharded_head_topk_ce``, which the reference calls
+without ``eval_precision``, so on a mesh the scan runs at fp32 products
+whatever ``eval_precision`` says (ROADMAP C.6); the dense arm takes the
+shard's logits through ``sharded_softmax_ce`` and ``sharded_top_k``. A
+batch's mean CE divides by its valid rows over all data ranks, and
+:meth:`EvalProtocol.finalize` sums the totals over the data axis (coverage:
+a max).
+
+Not ported: the reference's ``evaluate_device`` / ``_scanned_update``, the
+TPU's one-dispatch ``lax.scan`` over a device-resident buffer.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ import torch
 
 from ikea_recommender_tpu_torch.convert import tree_map
 from ikea_recommender_tpu_torch.core.device import resolve_device
+from ikea_recommender_tpu_torch.core.distributed import local_rows
+from ikea_recommender_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from ikea_recommender_tpu_torch.data.replay_buffer import eval_batches
 from ikea_recommender_tpu_torch.models.families import (
     FUSED_CE_MIN_ACTIONS,
@@ -54,6 +67,12 @@ from ikea_recommender_tpu_torch.ops.rewards import (
     diversity_from_topk,
     novelty_from_topk,
     repetitions_from_topk,
+)
+from ikea_recommender_tpu_torch.parallel.topk import (
+    shard_width,
+    sharded_head_topk_ce,
+    sharded_softmax_ce,
+    sharded_top_k,
 )
 
 
@@ -131,12 +150,10 @@ class EvalProtocol:
         eval_precision: Optional[str] = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EvalProtocol(mesh=...): a sharded eval comes with the multi-GPU "
-                "slice (ROADMAP A.9)"
-            )
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh lies on {mesh.device}, the protocol on {self.device}")
+        self.mesh = mesh
         self.model_cfg = model_cfg
         # None = fp32 head products, the dense path's numbers; "high" and
         # "default" trade precision for speed (ops/fused_ce.py::_dot).
@@ -166,8 +183,11 @@ class EvalProtocol:
         # stacked Q heads).
         fam = model_cfg.family
         can_fuse = fam == "sarm" or head_idx == 0 or (fam == "sqn" and head_idx == 1)
+        self._model_sharded = mesh is not None and mesh.size(MODEL_AXIS) > 1
+        if mesh is not None:
+            shard_width(model_cfg.padded_action_dim, mesh)  # raises where it does not divide
         if fused is None:
-            fused = self.num_actions >= FUSED_CE_MIN_ACTIONS
+            fused = self._model_sharded or self.num_actions >= FUSED_CE_MIN_ACTIONS
         self.fused = bool(fused) and can_fuse
         # the widest top-k any metric reads, computed once per batch
         self._max_k = max(max(self.topk_hr_ndcg), max(self.topk_cov), topk_div, topk_nov)
@@ -206,14 +226,21 @@ class EvalProtocol:
         ``softmax_cross_entropy_with_integer_labels``)."""
         k = self._max_k if k is None else k
         state, true_len, action = (self._on_device(x) for x in (state, true_len, action))
+        mesh = self.mesh
         if self.fused:
-            h = apply_features(params, self.model_cfg, state, true_len)
+            h = apply_features(params, self.model_cfg, state, true_len, mesh=mesh)
             kernel, bias = eval_head(params, self.model_cfg, self.head_idx)
+            if self._model_sharded:
+                return sharded_head_topk_ce(h, kernel, bias, k, self.num_actions, mesh,
+                                            labels=action)
             return blockwise_head_topk_ce(
                 h, kernel, bias, k, self.num_actions, labels=action,
                 precision=self.eval_precision,
             )
-        preds = apply_model(params, self.model_cfg, state, true_len)[self.head_idx]
+        preds = apply_model(params, self.model_cfg, state, true_len, mesh=mesh)[self.head_idx]
+        if mesh is not None:  # this rank's columns
+            vals, idx = sharded_top_k(preds, k, mesh)
+            return vals, idx, sharded_softmax_ce(preds, action, mesh)
         label_logit = preds.gather(1, action.long()[:, None])[:, 0]
         per_ce = torch.logsumexp(preds, dim=1) - label_logit
         vals, idx = topk_lowest_id(preds, k)
@@ -227,13 +254,19 @@ class EvalProtocol:
         self, params, accum: EvalAccum, state, action, true_len, valid, action_type=None
     ) -> EvalAccum:
         """The totals after one batch (numpy arrays or tensors; ``valid``
-        marks the real rows of a padded batch)."""
+        marks the real rows of a padded batch). On a mesh, this rank's rows
+        of the batch; its mean CE is over the whole batch's valid rows."""
         state, action, true_len = (self._on_device(x) for x in (state, action, true_len))
         valid = self._on_device(valid, torch.bool)
         _, idx, per_ce = self.topk_ce(params, state, true_len, action)
 
         w = valid.to(per_ce.dtype)
-        batch_loss = (per_ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+        if self.mesh is None:
+            batch_loss = (per_ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+        else:
+            num, den = self.mesh.all_reduce(torch.stack([(per_ce * w).sum(), w.sum()]), "sum",
+                                            DATA_AXIS)
+            batch_loss = num / torch.clamp(den, min=1.0)
         div = diversity_from_topk(
             state, idx[:, : self.topk_div], true_len, self.padding_pos,
             self.div_embedding, out_to_in=self.out_to_in,
@@ -272,7 +305,10 @@ class EvalProtocol:
     # -- normalization -----------------------------------------------------
     def finalize(self, accum: EvalAccum) -> EvalResult:
         """Reads the totals back in one copy and normalizes them on the
-        host, as the reference's ``finalize``."""
+        host, as the reference's ``finalize``; on a mesh, the totals over
+        the data axis first."""
+        if self.mesh is not None:
+            accum = self._over_data(accum)
         a = dict(zip(
             [f.name for f in fields(EvalAccum)],
             _to_host([getattr(accum, f.name) for f in fields(EvalAccum)]),
@@ -308,14 +344,33 @@ class EvalProtocol:
             by_type=by_type,
         )
 
+    def _over_data(self, accum: EvalAccum) -> EvalAccum:
+        """The data ranks' totals summed (coverage: any rank's), in two
+        collectives; the batch losses are the whole batches' already."""
+        mesh = self.mesh
+        sums = ("n_samples", "hits", "ndcg", "reps", "div_rew_sum", "nov_rew_sum",
+                "type_hits", "type_ndcg", "type_count")
+        parts = [getattr(accum, f).to(torch.float32).reshape(-1) for f in sums]
+        flat = mesh.all_reduce(torch.cat(parts), "sum", DATA_AXIS)
+        out, at = {}, 0
+        for f, p in zip(sums, parts):
+            t = getattr(accum, f)  # the int32 counts are exact in float32 below 2^24
+            out[f] = flat[at:at + p.numel()].reshape(t.shape).to(t.dtype)
+            at += p.numel()
+        covered = mesh.all_reduce(accum.covered.to(torch.uint8), "max", DATA_AXIS).bool()
+        return EvalAccum(loss_sum=accum.loss_sum, n_batches=accum.n_batches, covered=covered,
+                         **out)
+
     # -- the whole buffer --------------------------------------------------
     def evaluate(self, params, eval_buf, batch_size: int) -> EvalResult:
         """Every batch of ``eval_buf`` (:func:`eval_batches`, the tail
-        padded), then :meth:`finalize`."""
+        padded; on a mesh, this rank's rows of each), then
+        :meth:`finalize`."""
         params = tree_map(lambda t: t.to(self.device), params)
         accum = self.init_accum()
         for b in eval_batches(eval_buf, batch_size):
-            accum = self.update(
-                params, accum, b.state, b.action, b.true_len, b.valid, b.action_type
-            )
+            cols = {f.name: getattr(b, f.name) for f in fields(b) if getattr(b, f.name) is not None}
+            if self.mesh is not None:
+                cols = local_rows(cols, self.mesh)
+            accum = self.update(params, accum, **cols)
         return self.finalize(accum)

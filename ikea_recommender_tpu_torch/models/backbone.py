@@ -25,16 +25,22 @@ The conventions carry over:
   The rows are gathered, then cast, where the reference casts the table,
   then gathers: the same values, no (V, E) cast a step, and a gradient
   whose duplicate ids are summed in float32 where the reference sums them
-  in bfloat16 (ROADMAP C.5).
+  in bfloat16 (ROADMAP C.5);
+- on a mesh whose model axis divides the table's rows, each rank holds a
+  contiguous block of them (``parallel/sharding.py``): the gather runs
+  through ``parallel/topk.py::sharded_embedding_lookup`` (the reference
+  leaves it to XLA), and :func:`embedding_grad_mask` masks the pad row on
+  the rank that holds it, at its global row.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ikea_recommender_tpu_torch.core.mesh import MODEL_AXIS
 from ikea_recommender_tpu_torch.models.gru import gru_layer_apply
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -80,13 +86,27 @@ def compute_dtype(cfg: BackboneConfig) -> torch.dtype:
     return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
-def embedding_grad_mask(cfg: BackboneConfig, device=None) -> Optional[torch.Tensor]:
+def embedding_rows(cfg: BackboneConfig, mesh=None) -> Tuple[int, int]:
+    """(rows, global row of the first) of the table block this rank
+    holds: all of it without a mesh or where the model axis does not divide
+    its rows (``parallel/sharding.py``'s guard)."""
+    V = cfg.num_embeddings
+    n = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    if n == 1 or V % n:
+        return V, 0
+    return V // n, mesh.index(MODEL_AXIS) * (V // n)
+
+
+def embedding_grad_mask(cfg: BackboneConfig, device=None, mesh=None) -> Optional[torch.Tensor]:
     """(V_pad, 1) multiplier zeroing the pad row's gradient when the pad
-    embedding is frozen. None when fully trainable."""
+    embedding is frozen (on a mesh: this rank's rows). None when fully
+    trainable."""
     if cfg.train_pad_embed:
         return None
-    mask = torch.ones((cfg.num_embeddings, 1), dtype=torch.float32, device=device)
-    mask[cfg.padding_idx] = 0.0
+    rows, first = embedding_rows(cfg, mesh)
+    mask = torch.ones((rows, 1), dtype=torch.float32, device=device)
+    if first <= cfg.padding_idx < first + rows:
+        mask[cfg.padding_idx - first] = 0.0
     return mask
 
 
@@ -111,17 +131,29 @@ def apply_backbone(
     dropout_generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     inputs_embeds: Optional[torch.Tensor] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Encode a batch of padded sessions -> (B, feature_dim) float32.
 
     With ``cfg.dropout > 0`` and ``deterministic=False`` the head input goes
-    through dropout, its keep mask drawn from ``dropout_generator``.
+    through dropout, its keep mask ``keep_mask`` (B, feature_dim) where
+    given (a mesh's data rank takes its rows of the global batch's mask),
+    else drawn from ``dropout_generator``. ``mesh``: this rank's place on a
+    (data, model) mesh, whose table rows it holds.
     ``inputs_embeds`` (B, T, E) replaces the table gather: the lazy
     embedding Adam gathers the rows outside autograd, so their gradient
     stays (B, T, E) instead of a (V, E) scatter. Everything up to the head
     input runs in ``cfg.compute_dtype``; the result is float32."""
     dtype = compute_dtype(cfg)
-    x = params["embedding"][states.long()] if inputs_embeds is None else inputs_embeds
+    if inputs_embeds is not None:
+        x = inputs_embeds
+    elif embedding_rows(cfg, mesh)[0] < cfg.num_embeddings:
+        from ikea_recommender_tpu_torch.parallel.topk import sharded_embedding_lookup
+
+        x = sharded_embedding_lookup(params["embedding"], states, mesh)
+    else:
+        x = params["embedding"][states.long()]
     x = x.to(dtype)
     lens = lengths if cfg.masked_recurrence else None
 
@@ -148,8 +180,10 @@ def apply_backbone(
         h = finals_fwd[pick]
 
     if cfg.dropout > 0.0 and not deterministic:
-        if dropout_generator is None:
-            raise ValueError("training dropout needs a dropout_generator")
         keep = 1.0 - cfg.dropout
-        h = apply_dropout(h, draw_keep_mask(h.shape, keep, dropout_generator, h.device), keep)
+        if keep_mask is None:
+            if dropout_generator is None:
+                raise ValueError("training dropout needs a dropout_generator")
+            keep_mask = draw_keep_mask(h.shape, keep, dropout_generator, h.device)
+        h = apply_dropout(h, keep_mask, keep)
     return h.to(torch.float32)

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ikea_recommender_tpu_torch.core.mesh import MODEL_AXIS, pvary
 from ikea_recommender_tpu_torch.models.backbone import BackboneConfig, apply_backbone
 from ikea_recommender_tpu_torch.models.heads import linear_apply, multihead_apply
 from ikea_recommender_tpu_torch.train.lazy_adam import from_action_major
@@ -108,10 +109,13 @@ def apply_features(
     dropout_generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     inputs_embeds: Optional[torch.Tensor] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Backbone features (B, F) — the input every head shares.
     ``inputs_embeds`` (B, T, E) takes the place of the table gather (the
-    lazy embedding Adam's rows, gathered outside autograd)."""
+    lazy embedding Adam's rows, gathered outside autograd); ``keep_mask``
+    and ``mesh`` as ``apply_backbone`` takes them."""
     return apply_backbone(
         params["backbone"],
         cfg.backbone,
@@ -120,11 +124,19 @@ def apply_features(
         dropout_generator=dropout_generator,
         deterministic=deterministic,
         inputs_embeds=inputs_embeds,
+        keep_mask=keep_mask,
+        mesh=mesh,
     )
 
 
-def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Padded action slots never win softmax / top-k / argmax."""
+def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor, col_offset: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Padded action slots never win softmax / top-k / argmax. With
+    ``col_offset``, ``logits`` are a shard of the head's columns whose
+    first has that global id."""
+    if col_offset is not None:
+        cols = col_offset + torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(cols < cfg.action_dim, logits, -1e9)
     n_pad = cfg.padded_action_dim - cfg.action_dim
     if n_pad == 0:
         return logits
@@ -167,6 +179,8 @@ def apply_model(
     *,
     dropout_generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    keep_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Forward pass -> tuple of head outputs.
 
@@ -174,15 +188,25 @@ def apply_model(
     sqn:   (sup_logits, q_values (B, A))
     smorl: (sup_logits, q_all (B, K, A))
     sarm:  (head_0, ..., head_4) each (B, A)
+
+    On a ``mesh`` each output is this rank's shard of the head's columns
+    (A/n of them), masked at their global ids; h's gradient is summed over
+    the model axis (``core/mesh.py::pvary``).
     """
     params = canonicalize_qheads(params, cfg)
     h = apply_features(
         params, cfg, states, lengths,
         dropout_generator=dropout_generator, deterministic=deterministic,
+        keep_mask=keep_mask, mesh=mesh,
     )
+    offset = None
+    if mesh is not None:
+        h = pvary(h, mesh, MODEL_AXIS)
+        head = params["q_heads" if cfg.family == "sarm" else "sup_head"]["bias"]
+        offset = mesh.index(MODEL_AXIS) * head.shape[-1]
 
     def mask_pad(logits):
-        return mask_pad_logits(cfg, logits)
+        return mask_pad_logits(cfg, logits, offset)
 
     if cfg.family == "sarm":
         q_all = mask_pad(multihead_apply(params["q_heads"], h))  # (B, 5, A)

@@ -96,7 +96,7 @@ from ikea_recommender_tpu_torch.utils.logging_dicts import (
 )
 
 DOUBLE_Q_FAMILIES = ("sqn", "smorl")
-_MESH = "comes with the multi-GPU slice (ROADMAP A.9)"
+_MESH = "comes with the multi-GPU slice's second half (ROADMAP A.9b)"
 
 
 def load_div_embedding(path: str) -> np.ndarray:

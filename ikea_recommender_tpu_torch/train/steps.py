@@ -59,6 +59,27 @@ batch; the double-Q and sarm steps also read ``reward`` (B,) float,
 ``next_state`` (B, T), ``true_next_len`` (B,) and ``is_end`` (B,) bool.
 Every mean is a masked mean. The steps return their metrics as device tensors and never
 wait on the device themselves.
+
+On a (data, model) mesh (``mesh``, ``core/mesh.py``; ROADMAP A.9a) each
+rank holds its slice of the params (``parallel/sharding.py``: embedding
+rows, head columns) and, with ``data_axis``, its rows of the batch
+(``core/distributed.py::local_rows``; without, every data rank takes the
+whole batch). The losses are the same functions: the fused arm runs B1/B2
+per shard (``parallel/fused_ce.py``), sqn's and smorl's target actions B5
+and B6 per shard, the row gathers and sarm's target max per shard
+(``parallel/q_kernels.py``), each merged over the model axis; the dense arm
+takes each shard's logits (``apply_model(..., mesh=)``) through
+``parallel/topk.py::sharded_softmax_ce``, ``sharded_top_k`` and
+``parallel/q_kernels.py::sharded_argmax``/``sharded_take``. Every masked
+mean divides by the global batch's valid rows (``n_valid``, summed over
+the data axis): a padded tail split unevenly over the data ranks weighs
+each row as the unsplit batch does. A data rank takes its rows of the
+global batch's dropout mask, drawn from the state's generator, and every
+rank draws the same coin. The ``*_loss_and_grads`` functions return the
+global metrics and this rank's slice of the global gradients (summed over
+the data axis in one collective, ``parallel/sharding.py::
+allreduce_grads``), and Adam moves each slice. The lazy optimizers on a
+mesh come with ROADMAP A.9b.
 """
 
 from __future__ import annotations
@@ -71,6 +92,8 @@ import torch.nn.functional as F
 
 from ikea_recommender_tpu_torch.convert import tree_leaves, tree_map, tree_unflatten
 from ikea_recommender_tpu_torch.core.device import resolve_device
+from ikea_recommender_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
+from ikea_recommender_tpu_torch.models import backbone
 from ikea_recommender_tpu_torch.models.backbone import embedding_grad_mask
 from ikea_recommender_tpu_torch.models.families import (
     ModelConfig,
@@ -98,6 +121,21 @@ from ikea_recommender_tpu_torch.ops.rl import (
     get_weighted_q_target,
     weighted_q_loss,
 )
+from ikea_recommender_tpu_torch.parallel.fused_ce import (
+    sharded_fused_softmax_ce,
+    sharded_fused_softmax_ce_topk,
+)
+from ikea_recommender_tpu_torch.parallel.q_kernels import (
+    sharded_argmax,
+    sharded_linear_argmax,
+    sharded_multihead_max,
+    sharded_multihead_row_logit,
+    sharded_row_logit,
+    sharded_take,
+    sharded_weighted_multihead_argmax,
+)
+from ikea_recommender_tpu_torch.parallel.sharding import allreduce_grads
+from ikea_recommender_tpu_torch.parallel.topk import sharded_softmax_ce, sharded_top_k
 from ikea_recommender_tpu_torch.train.lazy_adam import (
     emb_adam_update,
     gather_qhead_rows,
@@ -134,32 +172,82 @@ class RLStepConfig:
     single_optimizer: bool = False
 
 
-def _masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, valid: torch.Tensor, n: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """sum(x * valid) / max(n, 1), ``n`` the valid rows (default: of this
+    batch; on a mesh split over data: of the global batch)."""
     w = valid.to(x.dtype)
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(x * w) / torch.clamp(torch.sum(w) if n is None else n, min=1.0)
 
 
-def _ce_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    per = F.cross_entropy(logits, labels.long(), reduction="none")
-    return _masked_mean(per, valid)
+def _ce_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor, mesh=None,
+             n=None) -> torch.Tensor:
+    if mesh is None:
+        per = F.cross_entropy(logits, labels.long(), reduction="none")
+    else:  # this rank's columns of the logits
+        per = sharded_softmax_ce(logits, labels, mesh)
+    return _masked_mean(per, valid, n)
 
 
 def _fused_sup_ce(
-    params: Dict, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor
+    params: Dict, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+    mesh=None, n=None,
 ) -> torch.Tensor:
     """Supervised CE through the fused kernels, the same masked mean as
-    :func:`_ce_loss` over ``mask_pad_logits``-masked logits."""
+    :func:`_ce_loss` over ``mask_pad_logits``-masked logits; on a mesh B1
+    and B2 per shard of the head's columns."""
     head = params["sup_head"]
-    per = fused_softmax_ce(
-        h.to(torch.float32), head["kernel"], head["bias"], labels,
-        cfg.action_dim, cfg.head_precision,
-    )
-    return _masked_mean(per, valid)
+    if mesh is not None:
+        per = sharded_fused_softmax_ce(
+            h.to(torch.float32), head["kernel"], head["bias"], labels, mesh,
+            cfg.action_dim, None, cfg.head_precision,
+        )
+    else:
+        per = fused_softmax_ce(
+            h.to(torch.float32), head["kernel"], head["bias"], labels,
+            cfg.action_dim, cfg.head_precision,
+        )
+    return _masked_mean(per, valid, n)
 
 
-def _apply_grad_mask(grads: Dict, model_cfg: ModelConfig) -> Dict:
+def _count_valid(batch: Dict, mesh, data_axis) -> Dict:
+    """``batch`` with ``n_valid``, the global batch's valid rows, where
+    the batch is split over a mesh's data axis."""
+    if mesh is None or data_axis is None:
+        return batch
+    n = mesh.all_reduce(batch["valid"].sum(dtype=torch.float32), "sum", DATA_AXIS)
+    return {**batch, "n_valid": n}
+
+
+def _keep_rows(cfg: ModelConfig, batch: Dict, generator, mesh, data_axis):
+    """This data rank's rows of the global batch's dropout keep mask,
+    drawn from ``generator`` as the unsplit batch draws it; None off a
+    mesh or without dropout (the backbone draws its own)."""
+    bb = cfg.backbone
+    if mesh is None or bb.dropout == 0.0:
+        return None
+    B = batch["state"].shape[0]
+    D = mesh.size(DATA_AXIS) if data_axis is not None else 1
+    d = mesh.index(DATA_AXIS) if data_axis is not None else 0
+    full = backbone.draw_keep_mask((B * D, bb.feature_dim), 1.0 - bb.dropout, generator,
+                                   batch["state"].device)
+    return full[d * B:(d + 1) * B]
+
+
+def _over_data(metrics: Dict, grads, mesh, data_axis):
+    """(metrics, grads) summed over the data axis where the batch is
+    split over it: the loss metrics in one collective, the gradients in
+    another."""
+    if mesh is None or data_axis is None:
+        return metrics, grads
+    keys = [k for k in ("sup_loss", "q_loss") if k in metrics]
+    sums = mesh.all_reduce(torch.stack([metrics[k] for k in keys]), "sum", DATA_AXIS)
+    return {**metrics, **dict(zip(keys, sums.unbind(0)))}, allreduce_grads(grads, mesh)
+
+
+def _apply_grad_mask(grads: Dict, model_cfg: ModelConfig, mesh=None) -> Dict:
     emb = grads["backbone"]["embedding"]
-    mask = embedding_grad_mask(model_cfg.backbone, emb.device)
+    mask = embedding_grad_mask(model_cfg.backbone, emb.device, mesh)
     if mask is None:
         return grads
     out = dict(grads)
@@ -172,27 +260,41 @@ def loss_and_grads(
     batch: Dict[str, torch.Tensor],
     model_cfg: ModelConfig,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
+    data_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """(loss, grads) of the supervised CE step at ``params``, grads in the
     params' layout with the pad row's gradient masked. ``generator`` draws
-    the dropout mask (needed only when ``model_cfg.backbone.dropout > 0``)."""
+    the dropout mask (needed only when ``model_cfg.backbone.dropout > 0``).
+    On a ``mesh``, the global loss and this rank's slice of the gradients."""
+    batch = _count_valid(batch, mesh, data_axis)
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = _sup_ce_loss(leaves, batch, model_cfg, generator)
+        loss = _sup_ce_loss(leaves, batch, model_cfg, generator, mesh=mesh, data_axis=data_axis)
         grads = _grads(loss, leaves)
-    return loss.detach(), _apply_grad_mask(grads, model_cfg)
+    metrics, grads = _over_data({"sup_loss": loss.detach()}, _apply_grad_mask(grads, model_cfg, mesh),
+                                mesh, data_axis)
+    return metrics["sup_loss"], grads
 
 
-def _sup_ce_loss(params, batch, model_cfg: ModelConfig, generator, x_emb=None):
+def _sup_ce_loss(params, batch, model_cfg: ModelConfig, generator, x_emb=None, mesh=None,
+                 data_axis=None):
     """The CE families' masked-mean CE; ``x_emb`` (B, T, E) replaces the
     table gather (the lazy embedding's rows)."""
     kw = dict(dropout_generator=generator, deterministic=model_cfg.backbone.dropout == 0.0,
-              inputs_embeds=x_emb)
-    h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
+              inputs_embeds=x_emb, mesh=mesh,
+              keep_mask=_keep_rows(model_cfg, batch, generator, mesh, data_axis))
+    n = batch.get("n_valid")
     if model_cfg.fused_ce:
-        return _fused_sup_ce(params, model_cfg, h, batch["action"], batch["valid"])
-    logits = mask_pad_logits(model_cfg, linear_apply(params["sup_head"], h))
-    return _ce_loss(logits, batch["action"], batch["valid"])
+        h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
+        return _fused_sup_ce(params, model_cfg, h, batch["action"], batch["valid"], mesh, n)
+    if mesh is not None:
+        (logits,) = apply_model(params, model_cfg, batch["state"], batch["true_len"], **{
+            k: v for k, v in kw.items() if k != "inputs_embeds"})
+    else:
+        h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
+        logits = mask_pad_logits(model_cfg, linear_apply(params["sup_head"], h))
+    return _ce_loss(logits, batch["action"], batch["valid"], mesh, n)
 
 
 def _grads(loss: torch.Tensor, leaves) -> Dict:
@@ -209,10 +311,12 @@ def ce_train_step(
     batch: Dict[str, torch.Tensor],
     model_cfg: ModelConfig,
     opt: Adam,
+    mesh=None,
+    data_axis: Optional[str] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One supervised CE step. Moves ``state``'s params and moments in
     place and returns it with the step advanced, and the metrics."""
-    loss, grads = loss_and_grads(state.params, batch, model_cfg, state.generator)
+    loss, grads = loss_and_grads(state.params, batch, model_cfg, state.generator, mesh, data_axis)
     opt.update(grads, state.opt_state, state.params)
     state.step += 1
     return state, {"sup_loss": loss, "q_loss": torch.zeros_like(loss)}
@@ -241,51 +345,76 @@ def _kernel(head) -> Tuple[torch.Tensor, bool]:
     return (head["kernel_am"], True) if "kernel_am" in head else (head["kernel"], False)
 
 
-def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz=None):
+def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz=None,
+              mesh=None):
     """(total, sup_loss, q_loss, target action) of the sqn step with
     ``p_main`` the trained net. On the lazy paths ``lz`` holds the
     embedding rows (``x_emb``) and/or the trained head's sorted rows
     (``rows``) that autograd differentiates; an action-major head takes
-    B5's action-major form."""
+    B5's action-major form. On a ``mesh``, the sharded ops."""
     boot_len = batch["true_len"] if rl.compat_boot_len_bug else batch["true_next_len"]
     not_end = 1.0 - batch["is_end"].to(torch.float32)
+    n = batch.get("n_valid")
     if cfg.fused_ce:
         h = apply_features(p_main, cfg, batch["state"], batch["true_len"],
-                           inputs_embeds=None if lz is None else lz.get("x_emb"))
-        sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"])
+                           inputs_embeds=None if lz is None else lz.get("x_emb"), mesh=mesh)
+        sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"], mesh, n)
         qh, qb = p_main["q_head"], p_boot["q_head"]
-        q = _q_at(h, qh, batch["action"], lz)[:, 0]
+        if mesh is None:
+            q = _q_at(h, qh, batch["action"], lz)[:, 0]
+        else:
+            q = sharded_row_logit(h, qh["kernel"], qh["bias"], batch["action"], mesh)
         with torch.no_grad():
-            h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"])
-            w, am = _kernel(qh)
-            max_a_next = fused_linear_argmax(
-                h_next, w, qh["bias"], cfg.action_dim, cfg.head_precision, action_major=am
-            )
-            h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len)
-            q_next_boot = _q_at(h_next_boot, qb, max_a_next)[:, 0]
+            h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"],
+                                    mesh=mesh)
+            h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len, mesh=mesh)
+            if mesh is None:
+                w, am = _kernel(qh)
+                max_a_next = fused_linear_argmax(
+                    h_next, w, qh["bias"], cfg.action_dim, cfg.head_precision, action_major=am
+                )
+                q_next_boot = _q_at(h_next_boot, qb, max_a_next)[:, 0]
+            else:
+                max_a_next = sharded_linear_argmax(
+                    h_next, qh["kernel"], qh["bias"], cfg.action_dim, mesh, cfg.head_precision
+                )
+                q_next_boot = sharded_row_logit(h_next_boot, qb["kernel"], qb["bias"],
+                                                max_a_next, mesh)
     else:
-        sup, q_out = apply_model(p_main, cfg, batch["state"], batch["true_len"])
-        sup_loss = _ce_loss(sup, batch["action"], batch["valid"])
-        q = q_out.gather(1, batch["action"].long()[:, None])[:, 0]
+        sup, q_out = apply_model(p_main, cfg, batch["state"], batch["true_len"], mesh=mesh)
+        sup_loss = _ce_loss(sup, batch["action"], batch["valid"], mesh, n)
+        q = _take(q_out, batch["action"], mesh)
         with torch.no_grad():
             # target: r + gamma Q_boot(s', argmax_a Q_main(s', a)), zero at ends
-            max_a_next = torch.argmax(
-                apply_model(p_main, cfg, batch["next_state"], batch["true_next_len"])[1], dim=1
-            )
-            q_boot_all = apply_model(p_boot, cfg, batch["next_state"], boot_len)[1]
-            q_next_boot = q_boot_all.gather(1, max_a_next[:, None])[:, 0]
+            q_next = apply_model(p_main, cfg, batch["next_state"], batch["true_next_len"],
+                                 mesh=mesh)[1]
+            max_a_next = torch.argmax(q_next, dim=1) if mesh is None else sharded_argmax(
+                q_next, mesh)
+            q_boot_all = apply_model(p_boot, cfg, batch["next_state"], boot_len, mesh=mesh)[1]
+            q_next_boot = _take(q_boot_all, max_a_next, mesh)
     q_next_boot = q_next_boot * not_end
     td = batch["reward"] + rl.gamma * q_next_boot - q
-    q_loss = _masked_mean(td**2, batch["valid"])
+    q_loss = _masked_mean(td**2, batch["valid"], n)
     return q_loss + sup_loss, sup_loss, q_loss, max_a_next
 
 
-def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz=None):
+def _take(values: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """Each row's value at ``idx`` of (B, A) or (B, K, A) values (on a
+    mesh, of this rank's column shard of them) -> (B,) or (B, K)."""
+    if mesh is not None:
+        return sharded_take(values, idx, mesh)
+    if values.dim() == 2:
+        return values.gather(1, idx.long()[:, None])[:, 0]
+    return gather_from_3d(values, idx)
+
+
+def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz=None,
+                mesh=None):
     """(total, sup_loss, q_loss, target action) of the smorl step with
     ``p_main`` the trained net: K reward heads, the accuracy reward from the
     batch and the diversity and novelty rewards from the supervised head's
     top-k (no gradient). ``lz`` as :func:`_sqn_loss`'s; an action-major
-    head takes B6's action-major form."""
+    head takes B6's action-major form. On a ``mesh``, the sharded ops."""
     K = cfg.num_q_heads
     w = aux["q_weights"]
     boot_len = batch["true_len"] if rl.compat_boot_len_bug else batch["true_next_len"]
@@ -294,40 +423,65 @@ def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, 
     # the top-k width the online rewards read from the supervised head
     k_need = max(rl.topk_div if K >= 2 else 0, rl.topk_nov if K >= 3 else 0)
     top_i = None
+    n = batch.get("n_valid")
     if cfg.fused_ce:
         h = apply_features(p_main, cfg, batch["state"], batch["true_len"],
-                           inputs_embeds=None if lz is None else lz.get("x_emb"))
+                           inputs_embeds=None if lz is None else lz.get("x_emb"), mesh=mesh)
         sh = p_main["sup_head"]
         if k_need:
-            per_ce, top_i = fused_softmax_ce_topk(
-                h.to(torch.float32), sh["kernel"], sh["bias"], batch["action"], k_need,
-                cfg.action_dim, cfg.head_precision,
-            )
-            sup_loss = _masked_mean(per_ce, batch["valid"])
+            h32 = h.to(torch.float32)
+            if mesh is None:
+                per_ce, top_i = fused_softmax_ce_topk(
+                    h32, sh["kernel"], sh["bias"], batch["action"], k_need,
+                    cfg.action_dim, cfg.head_precision,
+                )
+            else:
+                per_ce, top_i = sharded_fused_softmax_ce_topk(
+                    h32, sh["kernel"], sh["bias"], batch["action"], k_need, mesh,
+                    cfg.action_dim, None, cfg.head_precision,
+                )
+            sup_loss = _masked_mean(per_ce, batch["valid"], n)
         else:
-            sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"])
+            sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"], mesh, n)
         qh, qb = p_main["q_heads"], p_boot["q_heads"]
-        q = _q_at(h, qh, batch["action"], lz)  # (B, K)
+        if mesh is None:
+            q = _q_at(h, qh, batch["action"], lz)  # (B, K)
+        else:
+            q = sharded_multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"], mesh)
         with torch.no_grad():
-            h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"])
-            wk, am = _kernel(qh)
-            max_a_next = fused_weighted_multihead_argmax(
-                h_next, wk, qh["bias"], w, cfg.action_dim, cfg.head_precision, action_major=am
-            )
-            h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len)
-            q_next_boot = _q_at(h_next_boot, qb, max_a_next)
+            h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"],
+                                    mesh=mesh)
+            h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len, mesh=mesh)
+            if mesh is None:
+                wk, am = _kernel(qh)
+                max_a_next = fused_weighted_multihead_argmax(
+                    h_next, wk, qh["bias"], w, cfg.action_dim, cfg.head_precision,
+                    action_major=am
+                )
+                q_next_boot = _q_at(h_next_boot, qb, max_a_next)
+            else:
+                max_a_next = sharded_weighted_multihead_argmax(
+                    h_next, qh["kernel"], qh["bias"], w, cfg.action_dim, mesh,
+                    cfg.head_precision
+                )
+                q_next_boot = sharded_multihead_row_logit(h_next_boot, qb["kernel"], qb["bias"],
+                                                          max_a_next, mesh)
     else:
-        sup, q_all = apply_model(p_main, cfg, batch["state"], batch["true_len"])
-        sup_loss = _ce_loss(sup, batch["action"], batch["valid"])
+        sup, q_all = apply_model(p_main, cfg, batch["state"], batch["true_len"], mesh=mesh)
+        sup_loss = _ce_loss(sup, batch["action"], batch["valid"], mesh, n)
         if k_need:
-            top_i = topk_lowest_id(sup.detach(), k_need)[1]
-        q = gather_from_3d(q_all, batch["action"])  # (B, K)
+            top_i = (topk_lowest_id(sup.detach(), k_need) if mesh is None
+                     else sharded_top_k(sup, k_need, mesh))[1]
+        q = _take(q_all, batch["action"], mesh)  # (B, K)
         with torch.no_grad():
             # a* maximizes the main net's weighted head sum on s'
-            q_out_next = apply_model(p_main, cfg, batch["next_state"], batch["true_next_len"])[1]
-            max_a_next = get_max_action(get_weighted_q_target(q_out_next, w))
-            q_out_boot = apply_model(p_boot, cfg, batch["next_state"], boot_len)[1]
-            q_next_boot = gather_from_3d(q_out_boot, max_a_next)  # (B, K)
+            q_out_next = apply_model(p_main, cfg, batch["next_state"], batch["true_next_len"],
+                                     mesh=mesh)[1]
+            weighted = get_weighted_q_target(q_out_next, w)
+            max_a_next = get_max_action(weighted) if mesh is None else sharded_argmax(
+                weighted, mesh)
+            q_out_boot = apply_model(p_boot, cfg, batch["next_state"], boot_len, mesh=mesh)[1]
+            q_next_boot = _take(q_out_boot, max_a_next, mesh)  # (B, K)
     q_next_boot = q_next_boot * not_end[:, None]
 
     rewards = [batch["reward"]]
@@ -343,7 +497,7 @@ def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, 
     r = torch.stack(rewards, dim=1).to(torch.float32)  # (B, K)
 
     td = (r + rl.gamma * q_next_boot - q) ** 2  # (B, K)
-    q_loss = _masked_mean(weighted_q_loss(td, w), batch["valid"])
+    q_loss = _masked_mean(weighted_q_loss(td, w), batch["valid"], n)
     return sup_loss + rl.alpha * q_loss, sup_loss, q_loss, max_a_next
 
 
@@ -354,21 +508,25 @@ def double_q_loss_and_grads(
     rl: RLStepConfig,
     main: int,
     aux: Dict,
+    mesh=None,
+    data_axis: Optional[str] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(metrics, grads) of the sqn or smorl step with net ``main`` of the
     pair trained and the other one the bootstrap: ``sup_loss``, ``q_loss``
     and ``target_action`` (the main net's best next action, (B,)), and the
     main net's gradients with the pad row's masked. ``aux`` holds the
-    device tensors that :func:`make_train_step` prepares."""
+    device tensors that :func:`make_train_step` prepares. On a ``mesh``,
+    the global losses and this rank's slice of the gradients."""
     loss_fn = _sqn_loss if model_cfg.family == "sqn" else _smorl_loss
+    batch = _count_valid(batch, mesh, data_axis)
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params[main])
     with torch.enable_grad():
         total, sup_loss, q_loss, target = loss_fn(
-            leaves, params[1 - main], batch, model_cfg, rl, aux
+            leaves, params[1 - main], batch, model_cfg, rl, aux, mesh=mesh
         )
         grads = _grads(total, leaves)
     metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach(), "target_action": target}
-    return metrics, _apply_grad_mask(grads, model_cfg)
+    return _over_data(metrics, _apply_grad_mask(grads, model_cfg, mesh), mesh, data_axis)
 
 
 def _main_net(state, model_cfg: ModelConfig, coin: Optional[int]) -> int:
@@ -392,6 +550,8 @@ def double_q_train_step(
     rl: RLStepConfig,
     aux: Dict,
     coin: Optional[int] = None,
+    mesh=None,
+    data_axis: Optional[str] = None,
 ) -> Tuple[DoubleQState, Dict[str, torch.Tensor]]:
     """One sqn or smorl step (the reference's ``_double_q_run``). The coin
     (0 or 1: the main net) is ``coin`` when given, else the state
@@ -401,7 +561,8 @@ def double_q_train_step(
     the pair the other net takes zero gradients and still moves under its
     moments, as in the reference."""
     main = _main_net(state, model_cfg, coin)
-    metrics, grads = double_q_loss_and_grads(state.params, batch, model_cfg, rl, main, aux)
+    metrics, grads = double_q_loss_and_grads(state.params, batch, model_cfg, rl, main, aux,
+                                             mesh, data_axis)
     if rl.single_optimizer:
         zeros = tree_map(torch.zeros_like, state.params[1 - main])
         pair = (grads, zeros) if main == 0 else (zeros, grads)
@@ -412,33 +573,45 @@ def double_q_train_step(
     return state, metrics
 
 
-def _sarm_loss(params, batch, cfg: ModelConfig, rl: RLStepConfig, lz=None):
+def _sarm_loss(params, batch, cfg: ModelConfig, rl: RLStepConfig, lz=None, mesh=None):
     """(total, sup_loss, q_loss) of the sarm step: the CE on head 0 plus
     the mean over the heads of each head's masked-mean TD loss. On the lazy
     Q-head layout head 0 is ``kernel0`` (dense: the CE's gradient reaches
     every column) and heads 1-4 are action-major rows: Q(s, a) their sorted
     rows from ``lz``, the target max :func:`blockwise_multihead_max` on
-    head 0 joined with :func:`blockwise_multihead_max_am` on the rest."""
+    head 0 joined with :func:`blockwise_multihead_max_am` on the rest. On a
+    ``mesh``, the sharded ops."""
     not_end = 1.0 - batch["is_end"].to(torch.float32)
+    n = batch.get("n_valid")
     if cfg.fused_ce:
         h = apply_features(params, cfg, batch["state"], batch["true_len"],
-                           inputs_embeds=None if lz is None else lz.get("x_emb"))
+                           inputs_embeds=None if lz is None else lz.get("x_emb"), mesh=mesh)
         qh = params["q_heads"]
         lazy_qh = "kernel0" in qh
         k0, b0 = (qh["kernel0"], qh["bias0"]) if lazy_qh else (qh["kernel"][0], qh["bias"][0])
-        per = fused_softmax_ce(
-            h.to(torch.float32), k0, b0, batch["action"], cfg.action_dim, cfg.head_precision,
-        )
-        sup_loss = _masked_mean(per, batch["valid"])
+        h32 = h.to(torch.float32)
+        if mesh is None:
+            per = fused_softmax_ce(h32, k0, b0, batch["action"], cfg.action_dim,
+                                   cfg.head_precision)
+        else:
+            per = sharded_fused_softmax_ce(h32, k0, b0, batch["action"], mesh, cfg.action_dim,
+                                           None, cfg.head_precision)
+        sup_loss = _masked_mean(per, batch["valid"], n)
         rest = {"kernel_am": qh["kernel_am"], "bias": qh["bias_rest"]} if lazy_qh else None
         if lazy_qh:
             q = torch.cat([row_logit(h, k0, b0, batch["action"])[:, None],
                            _q_at(h, rest, batch["action"], lz)], dim=1)
+        elif mesh is not None:
+            q = sharded_multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"], mesh)
         else:
             q = multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"])  # (B, 5)
         with torch.no_grad():
-            h_next = apply_features(params, cfg, batch["next_state"], batch["true_next_len"])
-            if lazy_qh:
+            h_next = apply_features(params, cfg, batch["next_state"], batch["true_next_len"],
+                                    mesh=mesh)
+            if mesh is not None:
+                q_next = sharded_multihead_max(h_next, qh["kernel"], qh["bias"], cfg.action_dim,
+                                               mesh, precision=cfg.head_precision)
+            elif lazy_qh:
                 q_next = torch.cat([
                     blockwise_multihead_max(h_next, k0[None], b0[None], cfg.action_dim,
                                             precision=cfg.head_precision),
@@ -451,33 +624,39 @@ def _sarm_loss(params, batch, cfg: ModelConfig, rl: RLStepConfig, lz=None):
                     precision=cfg.head_precision
                 )  # (B, 5)
     else:
-        outs = apply_model(params, cfg, batch["state"], batch["true_len"])
-        sup_loss = _ce_loss(outs[0], batch["action"], batch["valid"])
-        q = gather_from_3d(torch.stack(outs, dim=1), batch["action"])  # (B, 5)
+        outs = apply_model(params, cfg, batch["state"], batch["true_len"], mesh=mesh)
+        sup_loss = _ce_loss(outs[0], batch["action"], batch["valid"], mesh, n)
+        q = _take(torch.stack(outs, dim=1), batch["action"], mesh)  # (B, 5)
         with torch.no_grad():
-            outs_next = apply_model(params, cfg, batch["next_state"], batch["true_next_len"])
+            outs_next = apply_model(params, cfg, batch["next_state"], batch["true_next_len"],
+                                    mesh=mesh)
             q_next = torch.stack(outs_next, dim=1).amax(dim=2)  # (B, 5)
+            if mesh is not None:
+                q_next = mesh.all_reduce(q_next, "max", MODEL_AXIS)
     # each head bootstraps from its own max, zero at episode ends
     q_next = q_next * not_end[:, None]
     td = (batch["reward"][:, None] + rl.sarm_gamma * q_next - q) ** 2
     valid = batch["valid"]
-    n = torch.clamp(valid.sum(), min=1)
+    n = torch.clamp(valid.sum() if n is None else n, min=1)
     q_loss = torch.mean((td * valid[:, None].to(td.dtype)).sum(dim=0) / n)
     return sup_loss + q_loss, sup_loss, q_loss
 
 
 def sarm_loss_and_grads(
-    params: Dict, batch: Dict[str, torch.Tensor], model_cfg: ModelConfig, rl: RLStepConfig
+    params: Dict, batch: Dict[str, torch.Tensor], model_cfg: ModelConfig, rl: RLStepConfig,
+    mesh=None, data_axis: Optional[str] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(metrics, grads) of the sarm step at ``params``: ``sup_loss`` and
     ``q_loss``, and the gradients with the pad row's masked. Head 0 takes
-    the CE's gradient (B2 on the card) and its Q gather's in one leaf."""
+    the CE's gradient (B2 on the card) and its Q gather's in one leaf. On a
+    ``mesh``, the global losses and this rank's slice of the gradients."""
+    batch = _count_valid(batch, mesh, data_axis)
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        total, sup_loss, q_loss = _sarm_loss(leaves, batch, model_cfg, rl)
+        total, sup_loss, q_loss = _sarm_loss(leaves, batch, model_cfg, rl, mesh=mesh)
         grads = _grads(total, leaves)
     metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach()}
-    return metrics, _apply_grad_mask(grads, model_cfg)
+    return _over_data(metrics, _apply_grad_mask(grads, model_cfg, mesh), mesh, data_axis)
 
 
 def sarm_train_step(
@@ -486,10 +665,12 @@ def sarm_train_step(
     model_cfg: ModelConfig,
     opt: Adam,
     rl: RLStepConfig,
+    mesh=None,
+    data_axis: Optional[str] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One sarm step. Moves ``state``'s params and moments in place and
     returns it with the step advanced, and the metrics."""
-    metrics, grads = sarm_loss_and_grads(state.params, batch, model_cfg, rl)
+    metrics, grads = sarm_loss_and_grads(state.params, batch, model_cfg, rl, mesh, data_axis)
     opt.update(grads, state.opt_state, state.params)
     state.step += 1
     return state, metrics
@@ -708,6 +889,7 @@ def make_train_step(
     lazy_embedding_lr: Optional[float] = None,
     lazy_qhead_lr: Optional[float] = None,
     mesh=None,
+    data_axis: Optional[str] = None,
     device="cuda",
 ) -> TrainStep:
     """Build ``step(state, batch) -> (state, metrics)`` for the family on
@@ -723,7 +905,15 @@ def make_train_step(
     ``lazy_qhead_lr``: lazy action-major Q-head Adam (sqn, smorl, sarm).
     Both take the states of the matching lazy builders
     (``train/state.py``); on the Q families they need the fused path and
-    two optimizers. ``mesh`` raises, naming its ROADMAP item."""
+    two optimizers.
+
+    ``mesh`` (``core/mesh.py``): the step on this rank's slice of the
+    params (``parallel/sharding.py::shard_state``), the model built with
+    ``model_config_from_train(..., align=n_model)`` so that the model axis
+    divides the padded action dim; with ``data_axis="data"`` the batch is
+    this rank's rows of a batch split over the data axis. ``device`` must
+    be the mesh's. The lazy optimizers on a mesh raise, naming their
+    ROADMAP item."""
     dev = resolve_device(device)
     fam = model_cfg.family
     rl = RLStepConfig() if rl is None else rl
@@ -731,7 +921,7 @@ def make_train_step(
     if lazy_qhead_lr is not None and fam not in QH_KEY:
         raise ValueError("qhead_optimizer='lazy_adam' needs a Q family")
     if mesh is not None:
-        raise NotImplementedError("a mesh comes with the multi-GPU slice (ROADMAP A.9)")
+        _check_mesh(model_cfg, mesh, data_axis, dev, lazy)
     if lazy.on and fam in QH_KEY:
         if not model_cfg.fused_ce:
             raise ValueError("lazy optimizers require the fused train path")
@@ -741,13 +931,15 @@ def make_train_step(
         if lazy.on:
             return TrainStep(lambda state, batch: ce_train_step_lazy(
                 state, batch, model_cfg, opt, lazy_embedding_lr), dev)
-        return TrainStep(lambda state, batch: ce_train_step(state, batch, model_cfg, opt), dev)
+        return TrainStep(lambda state, batch: ce_train_step(
+            state, batch, model_cfg, opt, mesh, data_axis), dev)
     if fam == "sarm":
         if lazy.on:
             return TrainStep(lambda state, batch: sarm_train_step_lazy(
                 state, batch, model_cfg, opt, rl, lazy), dev)
         return TrainStep(
-            lambda state, batch: sarm_train_step(state, batch, model_cfg, opt, rl), dev
+            lambda state, batch: sarm_train_step(state, batch, model_cfg, opt, rl, mesh,
+                                                 data_axis), dev
         )
     aux: Dict = {}
     if fam == "smorl":
@@ -770,8 +962,25 @@ def make_train_step(
             state, batch, model_cfg, opt, rl, lazy, aux, coin), dev, aux)
     return TrainStep(
         lambda state, batch, coin=None: double_q_train_step(
-            state, batch, model_cfg, opt, rl, aux, coin
+            state, batch, model_cfg, opt, rl, aux, coin, mesh, data_axis
         ),
         dev,
         aux,
     )
+
+
+def _check_mesh(model_cfg: ModelConfig, mesh, data_axis, dev: torch.device, lazy: LazyCfg):
+    """Raises for a step the mesh cannot take."""
+    if lazy.on:
+        raise NotImplementedError(
+            "the lazy optimizers on a mesh come with the multi-GPU slice's second half "
+            "(ROADMAP A.9b)")
+    if data_axis not in (None, DATA_AXIS):
+        raise ValueError(f"data_axis must be None or {DATA_AXIS!r}, got {data_axis!r}")
+    if mesh.device.type != dev.type:
+        raise ValueError(f"the mesh lies on {mesh.device}, the step runs on {dev}")
+    n = mesh.size(MODEL_AXIS)
+    if model_cfg.padded_action_dim % n:
+        raise ValueError(
+            f"padded action dim {model_cfg.padded_action_dim} not divisible by model axis {n}: "
+            "build the model with model_config_from_train(..., align=n_model)")

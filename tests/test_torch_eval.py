@@ -416,9 +416,18 @@ def test_default_div_embedding_gives_zero_diversity():
 
 
 def test_protocol_refuses_a_mesh_and_the_cpu_unless_asked(monkeypatch):
-    mc, _ = model_configs(20, embedding_size=4, hidden_state_size=4)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        EvalProtocol(mc, mesh=object(), device="cpu")
+    """A mesh is taken: on a (1, 1) gloo mesh in this process a pass equals
+    the pass without one (tests/test_torch_mesh.py holds (1, 2) and (2, 2)
+    meshes to the reference's protocol). The CPU only when asked."""
+    from ikea_recommender_tpu_torch.core.mesh import single_device_mesh
+
+    mc, jmc, np_params, _, buf, kw = _protocol_case("gru4rec", None, 0, 300, ())
+    params = params_from_numpy(np_params, "cpu")
+    results = [EvalProtocol(mc, device="cpu", mesh=mesh, **kw).evaluate(
+        params, replay_buffer.EvalBuffer(**buf), BATCH)
+        for mesh in (None, single_device_mesh("gloo", "cpu"))]
+    _assert_results_match(results[1], results[0])
+    assert results[1].loss == results[0].loss
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EvalProtocol(mc)

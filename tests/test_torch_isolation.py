@@ -64,7 +64,9 @@ def test_importing_the_port_loads_no_jax():
     for new in ("ops.fused_ce", "ops.fused_argmax", "ops.rl", "ops.rewards", "train.state",
                 "train.steps", "ops.ranking", "ops.coverage", "data.item_frequency",
                 "data.preprocessing", "data.replay_buffer", "eval.protocol",
-                "utils.logging_dicts"):
+                "utils.logging_dicts", "core.mesh", "core.distributed", "parallel.topk",
+                "parallel.fused_ce", "parallel.q_kernels", "parallel.sharding",
+                "parallel.__init__"):
         assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"

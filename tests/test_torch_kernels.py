@@ -789,3 +789,141 @@ def test_eval_protocol_on_the_card_matches_the_cpu(cuda_device, fused):
     np.testing.assert_allclose(got.ndcg, want.ndcg, atol=1e-6, rtol=0)
     assert got.coverage == want.coverage
     assert got.hr[-1] > 0.3
+
+
+# -- the mesh's shard contract (parallel/; ROADMAP A.9a) --------------------
+#
+# On a (data, model) mesh each rank launches B1, B2, B5 and B6 on its
+# columns of the head as they are: ``local_valid = clip(valid - r S, 0, S)``
+# (0 for a shard of padding only), labels shifted by the shard's offset r S
+# (negative past their owner, at least S before it), and B2 with the global
+# logsumexp. Held to the same kernel on the whole head: lse and the label
+# logit within 1e-5, dh and each shard's dW and db within 1e-5 of the
+# leaf's largest entry, ids where the twin's two best differ by more than
+# 1e-5 of the largest |max|, ties over a shard edge to the lower global id.
+
+SHARD_CASES = [  # (B, F, A, valid, shards, precision)
+    (256, 64, 70852, 70852, 4, "high"),  # shard width 17713: no tile's multiple
+    (256, 64, 70852, 3 * 17713 - 100, 4, "high"),  # the last shard all padding
+    (256, 64, 70852, 70852, 2, "high"),  # 35426
+    (37, 24, 1000, 777, 2, "highest"),
+]
+
+
+def _shards(A, valid, n):
+    """Per shard: (columns, local_valid, offset)."""
+    S = A // n
+    return [(slice(r * S, (r + 1) * S), min(max(valid - r * S, 0), S), r * S) for r in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,A,valid,n,precision", SHARD_CASES)
+def test_fused_ce_per_shard_matches_the_whole_head(cuda_device, B, F, A, valid, n, precision):
+    from ikea_recommender_tpu_torch.parallel.fused_ce import ce_from_shards
+
+    h, w, b, labels, ct = _ce_inputs(B, F, A, valid, False, cuda_device)
+    S = A // n
+    edges = [e for r in range(1, n) for e in (r * S - 1, r * S) if e < valid]
+    labels[: len(edges)] = torch.tensor(edges, device=cuda_device)
+    lse_f, lbl_f = fused_ce_fwd(h, w, b, labels, valid, precision)
+    dh_f, dw_f, db_f = fused_ce_bwd(h, w, b, labels, lse_f, ct, valid, precision)
+    before = (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES)
+    parts = []
+    for cols, lv, off in _shards(A, valid, n):
+        ws, bs = w[:, cols].contiguous(), b[cols].contiguous()
+        parts.append((ws, bs, labels - off, lv, cols) + fused_ce_fwd(h, ws, bs, labels - off, lv,
+                                                                      precision))
+    lse, lbl = ce_from_shards(torch.stack([p[5] for p in parts]),
+                              torch.stack([p[6] for p in parts]))
+    assert torch.isfinite(lse).all() and torch.isfinite(lbl).all()
+    assert (lse - lse_f).abs().max().item() <= 1e-5
+    assert (lbl - lbl_f).abs().max().item() <= 1e-5
+    dh = torch.zeros_like(dh_f)
+    for ws, bs, loc, lv, cols, *_ in parts:
+        dh_s, dw_s, db_s = fused_ce_bwd(h, ws, bs, loc, lse, ct, lv, precision)
+        assert torch.isfinite(dw_s).all() and torch.isfinite(db_s).all()
+        assert (dw_s[:, lv:] == 0).all() and (db_s[lv:] == 0).all()
+        for got, want, name in ((dw_s, dw_f[:, cols], "dW"), (db_s, db_f[cols], "db")):
+            err = (got - want).abs().max().item()
+            assert err <= 1e-5 * (dw_f if name == "dW" else db_f).abs().max().item(), name
+        dh += dh_s
+    torch.cuda.synchronize()
+    assert (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES) == (before[0] + n, before[1] + n)
+    _assert_close(dh, dh_f, "dh")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_fused_ce_takes_labels_outside_the_columns_and_no_valid_column(cuda_device, precision):
+    """Labels at -1 and past A match no column (label logit 0, no onehot in
+    dl), as the twin has them; valid_dim 0 leaves lse at about -1e30, finite,
+    and zero gradients."""
+    B, F, A = 64, 64, 17713
+    h, w, b, labels, ct = _ce_inputs(B, F, A, A, False, cuda_device)
+    labels[::2] = -1
+    labels[1::2] = A + 5
+    lse, lbl = fused_ce_fwd(h, w, b, labels, A, precision)
+    lse_p, lbl_p = fused_ce_fwd_plain(h, w, b, labels, A, precision)
+    assert (lbl == 0).all() and (lbl_p == 0).all()
+    _assert_close(lse, lse_p, "lse")
+    dh, dw, db = fused_ce_bwd(h, w, b, labels, lse_p, ct, A, precision)
+    dh_p, dw_p, db_p = fused_ce_bwd_plain(h, w, b, labels, lse_p, ct, A, precision)
+    tol = 2.0**-8 if precision == "default" else 1e-5  # dl rounded to bf16, as DW_OFF_LABEL_TOL
+    for got, want, name in ((dh, dh_p, "dh"), (dw, dw_p, "dw"), (db, db_p, "db")):
+        _assert_close(got, want, name, tol)
+    assert (db > 0).all()  # every column takes only its softmax term
+    lse0, lbl0 = fused_ce_fwd(h, w, b, labels.abs() % A, 0, precision)
+    assert torch.isfinite(lse0).all() and (lse0 < -1e29).all() and (lbl0 == 0).all()
+    dh0, dw0, db0 = fused_ce_bwd(h, w, b, labels.abs() % A, lse0, ct, 0, precision)
+    assert (dh0 == 0).all() and (dw0 == 0).all() and (db0 == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 3])
+@pytest.mark.parametrize("B,F,A,valid,n,precision", SHARD_CASES)
+def test_fused_argmax_per_shard_matches_the_whole_head(cuda_device, B, F, A, valid, n, precision,
+                                                       K):
+    from ikea_recommender_tpu_torch.ops.fused_topk import order_keys
+    from ikea_recommender_tpu_torch.parallel.q_kernels import argmax_from_shards
+
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, False, cuda_device)
+    idx_f, mx_f = _run_argmax(h, w, b, q, valid, precision)
+    _, mx_p, gap = _twin_argmax(h, w, b, q, valid, precision)
+    keys, maxima = [], []
+    for cols, lv, off in _shards(A, valid, n):
+        i_s, m_s = _run_argmax(h, w[..., cols].contiguous(), b[..., cols].contiguous(), q, lv,
+                               precision)
+        assert torch.isfinite(m_s).all()
+        if lv == 0:  # every column masked: nothing of this shard can win
+            assert (m_s == -1e30).all()
+        keys.append(order_keys(m_s, i_s + off))
+        maxima.append(m_s)
+    ids = argmax_from_shards(torch.stack(keys))
+    scale = mx_p.abs().max().item()
+    _assert_close(torch.stack(maxima).amax(dim=0), mx_f, "max")
+    clear = gap > 1e-5 * scale
+    assert torch.equal(ids[clear], idx_f[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 3])
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_argmax_ties_over_a_shard_edge(cuda_device, K, n):
+    """Small integers, the best columns of every row at S - 1, S and the
+    last: merged over the shards, the lowest global id, S - 1."""
+    from ikea_recommender_tpu_torch.ops.fused_topk import order_keys
+    from ikea_recommender_tpu_torch.parallel.q_kernels import argmax_from_shards
+
+    B, F, A = 256, 64, 70852
+    S = A // n
+    h, w, b, q = _argmax_inputs(B, F, A, A, K, False, cuda_device, integer=True)
+    h = h.abs()
+    for c in (S - 1, S, A - 1):
+        w[..., c], b[..., c] = 9.0, 9.0
+    for precision in ("highest", "high"):
+        keys = []
+        for cols, lv, off in _shards(A, A, n):
+            i_s, m_s = _run_argmax(h, w[..., cols].contiguous(), b[..., cols].contiguous(), q,
+                                   lv, precision)
+            keys.append(order_keys(m_s, i_s + off))
+        assert (argmax_from_shards(torch.stack(keys)) == S - 1).all(), precision

@@ -273,11 +273,27 @@ def test_train_state_holds_params_to_the_config():
 
 def test_lazy_and_mesh_name_their_slice():
     """A lazy Q-head Adam on a family without Q heads raises as the
-    reference's does; a mesh names its slice."""
-    mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="gru4rec")
-    params = params_from_numpy(numpy_init_params(mc, seed=0), "cpu")
-    _, opt = make_train_state(params, mc, LR, device="cpu")
+    reference's does. A mesh is taken: on a (1, 1) gloo mesh in this
+    process the step is the plain step, bit for bit; the lazy optimizers on
+    a mesh name their slice (A.9b). tests/test_torch_mesh.py holds the
+    steps on (1, 2) and (2, 2) meshes to the reference's."""
+    from ikea_recommender_tpu_torch.core.mesh import single_device_mesh
+
+    mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="gru4rec",
+                     fused_ce=True)
+    np_params = numpy_init_params(mc, seed=0)
+    _, opt = make_train_state(params_from_numpy(np_params, "cpu"), mc, LR, device="cpu")
     with pytest.raises(ValueError, match="needs a Q family"):
         make_train_step(mc, opt, lazy_qhead_lr=0.01, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_train_step(mc, opt, mesh=object(), device="cpu")
+    mesh = single_device_mesh("gloo", "cpu")
+    with pytest.raises(NotImplementedError, match=r"A\.9b"):
+        make_train_step(mc, opt, lazy_embedding_lr=0.01, mesh=mesh, device="cpu")
+    batch = _batches(1, B, A_SMALL, T, seed=6)[0]
+    runs = []
+    for kw in ({}, {"mesh": mesh, "data_axis": "data"}):
+        state, opt = make_train_state(params_from_numpy(np_params, "cpu"), mc, LR, device="cpu")
+        state, m = make_train_step(mc, opt, device="cpu", **kw)(state, batch)
+        runs.append((float(m["sup_loss"]), _torch_leaves(state.params)))
+    assert runs[0][0] == runs[1][0]
+    for a, w in zip(runs[0][1], runs[1][1]):
+        np.testing.assert_array_equal(a, w)
