@@ -182,6 +182,25 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    and ``EvalProtocol(mesh=)`` scores 20011 rows at 2000, held to one
    process as phases 4 and 9 hold theirs; and one rank over nccl (a (1, 1)
    mesh: one ``all_reduce``, the gru4rec steps). No rank may load jax.
+12. mesh trainer (ROADMAP A.9b): ``run/trainer.py::train`` on meshes of
+   ranks that share the card over gloo (phase 11's machinery), on phase
+   10's experiment: (a) gru4rec on (1, 2), 2 epochs, per-rank checkpoints,
+   the model aligned to 2 from one seeded init, held to one process from
+   the same params (losses rtol 1e-4, rank metrics exact but for the rows
+   within ``MESH_TRAINER_GAP`` of a tie, the best eval point equal); (b) a
+   resume from a's per-rank epoch-1 checkpoints, a's second epoch bit for
+   bit (logs, ``best_model.npz``, ``test_metrics.json``, each rank's final
+   slice); (c) ``sharded_ce: true`` for 1 epoch, a's first bit for bit
+   (``fused_ce`` resolved on: the same step); (d) ``preset: fast`` sqn on
+   (2, 1), 1 epoch, the action-major B5 once a step on each rank's 128
+   rows, held to one process within the reference's mesh bound
+   (``MESH_TRAINER_FAST``), the replicated params bit-equal on both ranks;
+   (e) gru4rec on (2, 1) with ``process_sharded: true``: each rank holds
+   only its 8196 rows, each batch the rows ``_sharded_index_matrices``
+   names, the replicas bit-equal. Every rank's launches are ``PER_STEP``
+   per step plus B3 per eval batch; "[mesh-trainer]" lines give ms per
+   step per rank, sessions/s, collectives per step per axis and the
+   phase's seconds, none of them a multi-GPU speed.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
@@ -1870,7 +1889,7 @@ def phase_fast(family, profile=False, dtype="float32"):
             before = [t.clone() for t in tree_leaves((kept_p, kept_o.rest.mu, kept_o.rest.nu))]
             before += [kept_o.qh.mv.clone(), kept_o.count.clone()]
         states["cuda"], m = steps["cuda"](states["cuda"], b, **(dict(coin=coin) if double_q else {}))
-        lazy_apply_updates(cpu_p, g, pieces, cpu_o, opts["cpu"], family, mc, lazy, on("cpu", b))
+        lazy_apply_updates(cpu_p, g, pieces, cpu_o, opts["cpu"], family, mc, lazy)
         states["cpu"].step += 1
         targets = {}
         for dev, met in (("cuda", m), ("cpu", m_cpu)):
@@ -3087,6 +3106,8 @@ def mesh_rank_main(rank, world, spec, backend, store, jobs, conn):
             elif job == "eval":  # one data index: every rank scores whole batches
                 scores, res, _ = mesh_eval(arg, mesh)
                 out[job] = (scores, res) if rank == 0 else None
+            elif job == "trainer":
+                out[f"trainer {arg['name']}"] = mesh_trainer_job(mesh, arg)
             elif job == "nccl":
                 mesh.reset_counts()
                 x = torch.ones(3, device=MESH_DEVICE)
@@ -3396,6 +3417,392 @@ def phase_mesh(smi):
     return paths
 
 
+# Phase 12: the trainer and its CLI on a mesh (ROADMAP A.9b), the trainer
+# phase's experiment (catalog 70852, E = H = 64, T = 10, batch 256) trained
+# by ranks that share the card over gloo. A rank's metrics may differ from
+# one process's by what its rows within MESH_TRAINER_GAP of a tie move
+# (counted on the one-process run); fast sqn (bf16 moments, whose rounding
+# a split batch's sums can flip) is held within the reference's own
+# mesh-to-one-device bound besides.
+MESH_TRAINER_GAP = 1e-4
+MESH_TRAINER_FAST = (2e-3, 2e-4)  # rtol, atol
+
+
+class TieCounting:
+    """Mixed into the port's EvalProtocol: for each finalize (a train window
+    or an eval pass, in call order) (valid rows whose top scores lie within
+    MESH_TRAINER_GAP of each other, valid rows)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.windows, self._near, self._n = [], 0, 0
+
+    def update(self, params, accum, state, action, true_len, valid, action_type=None):
+        s, a, tl = (self._on_device(x) for x in (state, action, true_len))
+        vals = self.topk_ce(params, s, tl, a, k=self._max_k + 1)[0]
+        ok = self._on_device(valid, torch.bool)
+        self._near += int((ok & ((vals[:, :-1] - vals[:, 1:]) <= MESH_TRAINER_GAP).any(1)).sum())
+        self._n += int(ok.sum())
+        return super().update(params, accum, state, action, true_len, valid, action_type)
+
+    def finalize(self, accum):
+        self.windows.append((self._near, self._n))
+        self._near = self._n = 0
+        return super().finalize(accum)
+
+
+def tie_limit(key, near, n, n_unpop, bound=(0.0, 0.0), value=0.0):
+    """How far a logged metric may move for ``near`` of ``n`` rows near a
+    tie (None: a loss, held by rtol); ``bound`` (rtol, atol) adds a slack."""
+    if "Loss" in key or key == "Q-Modification-Signal":
+        return None
+    n = max(n, 1)
+    k = int(key.rsplit("@", 1)[1].split("[")[0]) if "@" in key else 1
+    if "_CV@" in key:
+        lim = near * k / (max(n_unpop, 1) if "NOV_CV" in key else TRAINER_A)
+    elif "Div_Reward" in key:
+        lim = 1e-5 + 2 * near / n
+    elif "Nov_Reward" in key:
+        lim = 1e-5 + near / n
+    elif "_R@" in key:
+        lim = near * k / n
+    else:
+        lim = (1e-6 if "NDCG" in key else 0.0) + near / n
+    return lim + bound[1] + bound[0] * abs(value)
+
+
+def hold_trainer_logs(what, got, want, windows, n_nets, n_unpop, bound=(0.0, 0.0), rtol=1e-4):
+    """A mesh run's pretrain metrics, logs and test metrics (rank 0's)
+    against one process's, ``windows`` the one-process run's near ties per
+    finalize (pretrain; per point: train, val of each net; test). Returns
+    the worst loss error (relative) and the rows near a tie."""
+    worst, near_rows = 0.0, 0
+    if len(got["logs"]) != len(want.logs) or len(windows) != 2 + len(want.logs) * (1 + n_nets):
+        fail(f"{what}: {len(got['logs'])} eval points against {len(want.logs)}")
+    points = [(got["pretrain"], want.pretrain_metrics, {"val": windows[0]}),
+              (got["test"], want.test_metrics, {"val": windows[-1]})]
+    for i, (g, w) in enumerate(zip(got["logs"], want.logs)):
+        at = 1 + i * (1 + n_nets)
+        points.append((g, w, {"train": windows[at], "val": windows[at + 1],
+                              "sec": windows[at + n_nets]}))
+    for g, w, kinds in points:
+        if set(g) != set(w):
+            fail(f"{what}: logged keys differ: {sorted(set(g) ^ set(w))}")
+        near_rows += sum(k[0] for k in kinds.values())
+        for key, wv in w.items():
+            kind = "sec" if key.startswith("Sec_") else (
+                "train" if key.startswith("Train_") else "val")
+            lim = tie_limit(key, *kinds[kind], n_unpop, bound, wv)
+            err = abs(g[key] - wv)
+            if lim is None:
+                rel = err / max(abs(wv), 1e-12)
+                worst = max(worst, rel)
+                if rel > max(rtol, bound[0]) and err > bound[1]:
+                    fail(f"{what}: {key} {g[key]} against {wv} (rtol {rtol})")
+            elif err > lim:
+                fail(f"{what}: {key} {g[key]} against {wv}, beyond {lim:.3g} "
+                     f"({kinds[kind]} rows near a tie)")
+    return worst, near_rows
+
+
+def mesh_trainer_job(mesh, arg):
+    """One trainer run on this rank (``arg``: the YAML, its overrides, the
+    init params' file, the run's checks) -> its logs, metrics, launches,
+    collectives per train step, timing and final slice."""
+    import shutil
+
+    from ikea_recommender_tpu_torch.convert import unflatten
+    from ikea_recommender_tpu_torch.core.config import ParallelConfig, load_experiment_config
+    from ikea_recommender_tpu_torch.run import trainer
+
+    cfg = load_experiment_config(arg["yaml"])
+    cfg.exp_dir = arg["exp_dir"]
+    os.makedirs(cfg.exp_dir, exist_ok=True)
+    cfg.experiment.save_pretrained_embeddings = arg.get("embeddings", False)
+    for k, v in arg["train"].items():
+        setattr(cfg.train, k, v)
+    cfg.parallel = ParallelConfig(*arg["spec"], **arg.get("parallel", {}))
+    if arg.get("copy_ckpt"):  # this rank's checkpoint of an earlier run's epoch
+        src, step = arg["copy_ckpt"]
+        os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+        shutil.copy(os.path.join(src, f"ckpt_{step}.rank{mesh.rank}-of-{mesh.spec.num_devices}"
+                                      f".pt"), cfg.train.checkpoint_dir)
+    init = None
+    if arg.get("init"):
+        with np.load(arg["init"]) as f:
+            init = unflatten({k: f[k] for k in f.files})
+    seen = {"per_step": {a: {"calls": 0, "bytes": 0} for a in ("data", "model")}, "steps": 0,
+            "rows": []}
+    makers = {k: getattr(trainer, k) for k in ("make_train_step", "make_sharded_train_step",
+                                               "_device_train_data_process_sharded")}
+
+    def counted(make):
+        def build(*a, **kw):
+            step, run_mesh = make(*a, **kw), kw.get("mesh", a[2] if len(a) > 2 else None)
+
+            def call(state, batch):
+                before = run_mesh.counts()
+                out = step(state, batch)
+                for axis, c in run_mesh.counts().items():
+                    for key in ("calls", "bytes"):
+                        seen["per_step"][axis][key] += c[key] - before[axis][key]
+                seen["steps"] += 1
+                if arg.get("check_batches"):
+                    seen["rows"].append(batch["state"].clone())
+                return out
+
+            return call
+
+        return build
+
+    def held(*a):
+        out = makers["_device_train_data_process_sharded"](*a)
+        seen["train_bytes"] = sum(t.numel() * t.element_size() for t in out[0].values())
+        return out
+
+    trainer.make_train_step = counted(makers["make_train_step"])
+    trainer.make_sharded_train_step = counted(makers["make_sharded_train_step"])
+    trainer._device_train_data_process_sharded = held
+    torch.cuda.synchronize()
+    reset_counters()
+    try:
+        out = trainer.train(cfg, init_params=init, device=MESH_DEVICE)
+    finally:
+        for k, v in makers.items():
+            setattr(trainer, k, v)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counters().items() if v}
+    batches_ok = None
+    if arg.get("check_batches"):  # the rows _sharded_index_matrices names for this rank
+        from ikea_recommender_tpu_torch.data.replay_buffer import ReplayBuffer
+
+        buf = ReplayBuffer(cfg.data.train_path)
+        D, d = mesh.size("data"), mesh.index("data")
+        n = len(buf)
+        per = -(-n // D)
+        padded = np.zeros((D * per,) + buf.state.shape[1:], buf.state.dtype)
+        padded[:n] = buf.state
+        idx, _ = trainer._sharded_index_matrices(np.random.default_rng(cfg.seed * 100_003),
+                                                 n, per, D, cfg.train.batch_size)
+        batches_ok = len(seen["rows"]) == len(idx) and all(
+            np.array_equal(r.cpu().numpy(), padded[d * per + idx[i, d]])
+            for i, r in enumerate(seen["rows"]))
+    nets = out.state.params if isinstance(out.state.params, tuple) else (out.state.params,)
+    steps = max(seen["steps"], 1)
+    return {
+        "logs": out.logs, "pretrain": out.pretrain_metrics, "test": out.test_metrics,
+        "best": (out.best_metric, out.best_epoch), "launches": launches,
+        "per_step": {a: {k: v / steps for k, v in c.items()} for a, c in seen["per_step"].items()},
+        "steps": seen["steps"], "train_s": out.timing["dispatch"] + out.timing["sync"],
+        "throughput": out.throughput_sessions_per_sec, "timing": out.timing,
+        "shards": [named_leaves(p) for p in nets],
+        "train_bytes": seen.get("train_bytes"), "batches_ok": batches_ok,
+    }
+
+
+def same_shards(a, b):
+    """Whether two lists of {name: tensor} hold the same names and bits."""
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(torch.equal(x[k], y[k]) for k in x) for x, y in zip(a, b))
+
+
+def mesh_trainer_line(name, spec, ranks, n_b, epochs, smi, extra=""):
+    for r, run in enumerate(ranks):
+        ms = run["train_s"] / max(run["steps"], 1) * 1e3
+        print(f"[mesh-trainer] {name} on {spec[0]}x{spec[1]} rank {r} (its rows "
+              f"{TRAINER_B // spec[0]} of {TRAINER_B}): {run['steps']} steps ({epochs} x {n_b} "
+              f"an epoch), {ms:.3f} ms per step (train spans over their steps, train metrics "
+              f"included) on a card shared by {len(ranks)} ranks over gloo, not a multi-GPU "
+              f"speed; {run['throughput']:.0f} sessions/s; collectives per step "
+              f"{json.dumps(run['per_step'])}; launches {json.dumps(run['launches'])}; best "
+              f"{run['best'][0]:.6f} @ eval point {run['best'][1]}{extra}; {smi}")
+
+
+def phase_mesh_trainer(smi):
+    """The trainer on a mesh of ranks that share the card over gloo: (a)
+    gru4rec on (1, 2), 2 epochs, per-rank checkpoints, held to one process
+    from the same init; (b) a resume from a's epoch-1 checkpoints, a's
+    second epoch bit for bit; (c) ``sharded_ce`` 1 epoch, a's first bit for
+    bit; (d) fast sqn on (2, 1), the action-major B5 on each rank's 128
+    rows, held to one process, replicas bit-equal; (e) gru4rec on (2, 1)
+    with ``process_sharded``, each rank's rows and batches checked. Returns
+    each run's launches (summed over its ranks)."""
+    import tempfile
+
+    from ikea_recommender_tpu_torch.convert import numpy_init_params, params_from_numpy
+    from ikea_recommender_tpu_torch.core.config import load_experiment_config
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, ReplayBuffer, num_batches
+    from ikea_recommender_tpu_torch.eval.protocol import EvalProtocol
+    from ikea_recommender_tpu_torch.models.families import model_config_from_train
+    from ikea_recommender_tpu_torch.run import trainer
+
+    t_phase = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_trainer_") as tmp:
+        yaml_path = trainer_experiment(tmp)
+        bufs = dict(train_buf=ReplayBuffer(os.path.join(tmp, "train.npz")),
+                    val_buf=EvalBuffer(os.path.join(tmp, "val.npz")),
+                    test_buf=EvalBuffer(os.path.join(tmp, "test.npz")))
+        n_b = num_batches(len(bufs["train_buf"]), TRAINER_B)
+        n_val = num_batches(len(bufs["val_buf"]), EVAL_BATCH)
+        n_test = num_batches(len(bufs["test_buf"]), EVAL_BATCH)
+        fast_yaml = os.path.join(tmp, "fast.yaml")
+        with open(yaml_path) as src, open(fast_yaml, "w") as dst:
+            dst.write(src.read().replace('model: "gru4rec"', 'model: "sqn"').replace(
+                "  fused_ce: true\n", '  fused_ce: true\n  preset: "fast"\n'))
+        cfg = load_experiment_config(yaml_path)
+        n_unpop = len(json.load(open(os.path.join(tmp, "unpopular.json"))))
+        # the (1, 2) mesh's model pads 70853 embedding rows to 70854; one
+        # process takes the same params without the padding row, which no id
+        # reads and no step moves
+        init = numpy_init_params(model_config_from_train(cfg.train, cfg.data, align=2), cfg.seed)
+        np.savez(os.path.join(tmp, "init.npz"), **{
+            k: v.numpy() for k, v in named_leaves(params_from_numpy(init, "cpu")).items()})
+        one = {**init, "backbone": {**init["backbone"],
+                                     "embedding": init["backbone"]["embedding"][:TRAINER_A + 1]}}
+
+        def one_process(yaml, sub, epochs, init_params=None):
+            c = load_experiment_config(yaml)
+            c.exp_dir = os.path.join(tmp, sub)
+            c.train.epochs, c.train.checkpoint_dir = epochs, None
+            c.experiment.save_pretrained_embeddings = False
+            made = []
+
+            class Counting(TieCounting, EvalProtocol):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    made.append(self)
+
+            trainer.EvalProtocol = Counting
+            try:
+                res = trainer.train(c, init_params=init_params, device=MESH_DEVICE, **bufs)
+            finally:
+                trainer.EvalProtocol = EvalProtocol
+            return res, made[0].windows
+
+        t0 = time.perf_counter()
+        ref_a, win_a = one_process(yaml_path, "one_gru4rec", 2, one)
+        ref_d, win_d = one_process(fast_yaml, "one_sqn_fast", 1)
+        mesh_log(f"trainer: the one-process runs {time.perf_counter() - t0:.1f} s")
+
+        base = dict(yaml=yaml_path, embeddings=True)
+        run_a = dict(base, name="a", spec=(1, 2), exp_dir=f"{tmp}/a", init=f"{tmp}/init.npz",
+                     train=dict(epochs=2, checkpoint_dir=f"{tmp}/a_ckpt"))
+        run_b = dict(base, name="b", spec=(1, 2), exp_dir=f"{tmp}/b", init=f"{tmp}/init.npz",
+                     copy_ckpt=(f"{tmp}/a_ckpt", 1),
+                     train=dict(epochs=2, checkpoint_dir=f"{tmp}/b_ckpt", resume=True))
+        run_c = dict(base, name="c", spec=(1, 2), exp_dir=f"{tmp}/c", init=f"{tmp}/init.npz",
+                     parallel=dict(sharded_ce=True), train=dict(epochs=1))
+        run_d = dict(yaml=fast_yaml, name="d", spec=(2, 1), exp_dir=f"{tmp}/d",
+                     train=dict(epochs=1))
+        run_e = dict(base, name="e", spec=(2, 1), exp_dir=f"{tmp}/e", check_batches=True,
+                     parallel=dict(process_sharded=True), train=dict(epochs=1))
+        t0 = time.perf_counter()
+        r12 = mesh_spawn((1, 2), "gloo", [("trainer", run_a), ("trainer", run_b),
+                                          ("trainer", run_c)])
+        r21 = mesh_spawn((2, 1), "gloo", [("trainer", run_d), ("trainer", run_e)])
+        mesh_log(f"trainer: the two spawns {time.perf_counter() - t0:.1f} s")
+        get = lambda ranks, name: [r[f"trainer {name}"] for r in ranks]  # noqa: E731
+
+        # (a) held to one process; launches PER_STEP per step plus B3 per eval batch
+        a = get(r12, "a")
+        loss_err, near = hold_trainer_logs("mesh trainer a", a[0], ref_a, win_a, 1, n_unpop)
+        if a[0]["best"][1] != ref_a.best_epoch:
+            fail(f"mesh trainer a: best eval point {a[0]['best']} against one process's "
+                 f"{(ref_a.best_metric, ref_a.best_epoch)}")
+        per = -(-len(bufs["train_buf"]) // 2)  # each data rank's rows under process_sharded
+        n_b_e = -(-per // (TRAINER_B // 2))
+        for name, ranks, fam, steps in (("a", a, "gru4rec", 2 * n_b),
+                                        ("c", get(r12, "c"), "gru4rec", n_b),
+                                        ("d", get(r21, "d"), "sqn fast", n_b),
+                                        ("e", get(r21, "e"), "gru4rec", n_b_e)):
+            for r, run in enumerate(ranks):
+                res = SimpleOutcome(run["test"], run["logs"])
+                want = trainer_launches(fam, res, run["steps"], n_val, n_test)
+                want = {k: v for k, v in want.items() if v}
+                if run["launches"] != want:
+                    fail(f"mesh trainer {name} rank {r}: launched {run['launches']}, expected "
+                         f"{want}")
+                if run["steps"] != steps:
+                    fail(f"mesh trainer {name} rank {r}: {run['steps']} steps, expected {steps}")
+            total = {}
+            for run in ranks:
+                for k, v in run["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            paths[f"mesh trainer {name}"] = total
+        for r, run in enumerate(a[1:], 1):
+            if run["logs"] != a[0]["logs"] or run["test"] != a[0]["test"]:
+                fail(f"mesh trainer a: rank {r} logged other numbers than rank 0")
+        mesh_trainer_line("gru4rec (a)", (1, 2), a, n_b, 2, smi,
+                          f"; held to one process: losses within {loss_err:.3g} (relative), "
+                          f"{near} rows near a tie")
+
+        # (b) a resume from a's epoch-1 checkpoints gives a's second epoch bit for bit
+        b = get(r12, "b")
+        same = all(rb["logs"] == ra["logs"][2:] and rb["test"] == ra["test"] and rb["best"] == (
+            ra["best"]) and same_shards(rb["shards"], ra["shards"]) for ra, rb in zip(a, b))
+        with np.load(f"{tmp}/a/best_model.npz") as fa, np.load(f"{tmp}/b/best_model.npz") as fb:
+            same = same and set(fa.files) == set(fb.files) and all(
+                np.array_equal(fa[k], fb[k]) for k in fa.files)
+        same = same and (json.load(open(f"{tmp}/a/test_metrics.json"))
+                         == json.load(open(f"{tmp}/b/test_metrics.json")))
+        if not same:
+            fail("mesh trainer b: the resume from a's epoch-1 checkpoints is not a's second "
+                 "epoch bit for bit")
+        print(f"[mesh-trainer] resume (b) on 1x2 from a's per-rank epoch-1 checkpoints: the "
+              f"logs, best_model.npz, test_metrics.json and each rank's final slice equal a's "
+              f"bit for bit; {smi}")
+
+        # (c) sharded_ce: fused_ce resolved on, so the step is a's: a's first epoch
+        c = get(r12, "c")
+        if not all(rc["logs"] == ra["logs"][:2] for ra, rc in zip(a, c)):
+            fail("mesh trainer c: sharded_ce with fused_ce on is not a's first epoch bit for "
+                 "bit")
+        mesh_trainer_line("gru4rec sharded_ce (c)", (1, 2), c, n_b, 1, smi,
+                          "; fused_ce resolved on, so the same step as a: a's first epoch bit "
+                          "for bit")
+
+        # (d) fast sqn on (2, 1): one process's within the reference's mesh bound
+        d = get(r21, "d")
+        loss_err, near = hold_trainer_logs("mesh trainer d", d[0], ref_d, win_d, 2, n_unpop,
+                                           bound=MESH_TRAINER_FAST)
+        if not same_shards(d[0]["shards"], d[1]["shards"]):
+            fail("mesh trainer d: the two ranks' replicated params differ")
+        for r, run in enumerate(d):
+            if run["launches"].get("B5 fused_argmax am") != run["steps"]:
+                fail(f"mesh trainer d rank {r}: the action-major B5 ran "
+                     f"{run['launches'].get('B5 fused_argmax am')} times in {run['steps']} steps")
+        mesh_trainer_line("sqn preset fast (d)", (2, 1), d, n_b, 1, smi,
+                          f"; held to one process within rtol {MESH_TRAINER_FAST[0]}, atol "
+                          f"{MESH_TRAINER_FAST[1]}: losses within {loss_err:.3g}, {near} rows "
+                          f"near a tie; the Q head and GRU bit-equal on both ranks")
+
+        # (e) process_sharded on (2, 1)
+        e = get(r21, "e")
+        for r, run in enumerate(e):
+            if not run["batches_ok"]:
+                fail(f"mesh trainer e rank {r}: a batch's rows are not the ones "
+                     f"_sharded_index_matrices names")
+        check_logs("mesh trainer e", SimpleOutcome(e[0]["test"], e[0]["logs"], e[0]["pretrain"]))
+        if not same_shards(e[0]["shards"], e[1]["shards"]):
+            fail("mesh trainer e: the two ranks' params differ")
+        mesh_trainer_line("gru4rec process_sharded (e)", (2, 1), e, n_b_e, 1, smi, f"; each rank holds its {per} rows, "
+                          f"{[run['train_bytes'] for run in e]} bytes on the card, its batches "
+                          f"the rows _sharded_index_matrices names")
+    print(f"[mesh-trainer] phase: {time.perf_counter() - t_phase:.1f} s; every time above is "
+          f"of ranks that share one card, not a multi-GPU speed; {smi}")
+    return paths
+
+
+class SimpleOutcome:
+    """The parts of a ``TrainOutcome`` that ``trainer_launches`` and
+    ``check_logs`` read."""
+
+    def __init__(self, test, logs=(), pretrain=None):
+        self.test_metrics, self.logs = test, list(logs)
+        self.pretrain_metrics = test if pretrain is None else pretrain
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3424,6 +3831,7 @@ def main():
     paths["eval bf16"] = phase_eval("gru4rec", smi, profile=profile, dtype="bfloat16")
     paths.update(phase_trainer(smi, profile=profile))
     paths.update(phase_mesh(smi))
+    paths.update(phase_mesh_trainer(smi))
     # the card's machine has jax installed: show the port never loaded it
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))

@@ -21,9 +21,17 @@ merge with O(B) or O(B K) collectives over the model axis:
   ``ops/fused_topk.py::blockwise_multihead_max``, then a max.
 
 The dense arm's counterparts over a shard's (B, A/n) or (B, K, A/n)
-logits are :func:`sharded_argmax` and :func:`sharded_take`. The lazy
-optimizers' data-parallel islands (the reference's ``dp_*_am``) come with
-their steps on a mesh (ROADMAP A.9b).
+logits are :func:`sharded_argmax` and :func:`sharded_take`.
+
+The lazy Q heads' data-parallel islands (:func:`dp_linear_argmax_am`,
+:func:`dp_weighted_multihead_argmax_am`; reference ``q_kernels.py:275-358``)
+serve the other layout: the action-major head (``kernel_am`` (A, K*F)) is
+replicated on every rank, so the target action is B5 or B6 in their
+action-major form over the whole catalog, launched on this rank's own rows
+of ``h``. There is no collective inside: the reference's ``shard_map``
+splits only the batch over the data axis, which the port's ranks hold
+already, and the model ranks of one data index re-run the same rows, as
+the reference's model axis does.
 """
 
 from __future__ import annotations
@@ -188,3 +196,36 @@ def sharded_take(values: torch.Tensor, idx: torch.Tensor, mesh: Mesh) -> torch.T
         index = safe[:, None, None].expand(-1, values.shape[1], 1)
         vals, mask = values.gather(2, index)[:, :, 0], in_range[:, None]
     return psum(torch.where(mask, vals, 0.0), mesh, MODEL_AXIS)
+
+
+@torch.no_grad()
+def dp_linear_argmax_am(
+    h: torch.Tensor,  # (B/D, F): this rank's rows
+    kernel_am: torch.Tensor,  # (A_pad, F) action-major, replicated
+    bias: torch.Tensor,  # (A_pad,)
+    valid_dim: int,
+    mesh: Mesh,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """sqn's lazy target action: argmax over the replicated action-major
+    head of this rank's rows -> (B/D,) int64 ids; B5 action-major on the
+    card. No collective; not differentiable. ``mesh`` only names the
+    rank's place: the rows are its own already."""
+    return fused_linear_argmax(h, kernel_am, bias, valid_dim, precision, action_major=True)
+
+
+@torch.no_grad()
+def dp_weighted_multihead_argmax_am(
+    h: torch.Tensor,  # (B/D, F): this rank's rows
+    kernel_am: torch.Tensor,  # (A_pad, K*F) action-major, replicated
+    bias: torch.Tensor,  # (K, A_pad)
+    q_weights: Union[torch.Tensor, Sequence[float]],  # (K,)
+    valid_dim: int,
+    mesh: Mesh,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """smorl's lazy target action: argmax of the weighted head sum over the
+    replicated action-major heads, on this rank's rows -> (B/D,) ids; B6
+    action-major on the card. No collective; not differentiable."""
+    return fused_weighted_multihead_argmax(h, kernel_am, bias, q_weights, valid_dim, precision,
+                                           action_major=True)

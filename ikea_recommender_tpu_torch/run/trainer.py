@@ -40,8 +40,35 @@ embedding rows) and ``qhead_optimizer: lazy_adam`` on sqn, smorl or sarm
 reference's preconditions: where one fails, a preset's setting falls back
 to dense Adam with a ``[trainer]`` line and an explicit one raises. The
 lazily trained params keep the action-major layout in the checkpoints and
-in ``best_model.npz``, as the reference saves them. A device mesh raises,
-naming its ROADMAP item.
+in ``best_model.npz``, as the reference saves them.
+
+On a (data, model) mesh (the config's ``parallel:`` section with
+``data x model > 1``) each rank is one process, started by ``torchrun`` or
+by the caller, over an initialized process group of ``data x model``
+ranks (``core/distributed.py::initialize``); without one, ``train``
+raises. The reference treats a mesh in one process more widely than one
+over several processes; the port's ranks stand for the reference's single
+process, as the tests hold them to it:
+
+- lazy embedding Adam runs on a mesh for gru4rec, bidir_gru4rec, sqn and
+  smorl, and lazy Q-head Adam for sqn and smorl;
+- sarm on a mesh keeps the reference's rules: an explicit
+  ``optimizer: lazy_adam`` or ``qhead_optimizer: lazy_adam`` raises, and
+  the setting of ``preset: fast`` falls back to dense Adam with the
+  reference's ``[trainer]`` line;
+- ``process_sharded: null`` means off; only ``process_sharded: true``
+  splits the train rows.
+
+Each rank draws the same full params (or takes ``init_params``) and keeps
+its slice (``parallel/sharding.py::shard_state``), takes its rows of each
+global batch (``core/distributed.py::local_rows``), evaluates its rows of
+each eval batch (``EvalProtocol(mesh=)``) and saves its own checkpoint
+(``run/checkpoints.py``). With ``process_sharded: true`` a rank uploads
+only its data index's block of the train rows and the epoch's index
+matrices are the reference's ``_sharded_index_matrices``; its gather is
+local. ``sharded_ce`` is ``parallel/sharding.py::make_sharded_train_step``
+with ``sharded_ce``. The best model is put together on every rank
+(``gather_tree``); rank 0 alone writes files and prints.
 """
 
 from __future__ import annotations
@@ -55,6 +82,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ikea_recommender_tpu_torch.convert import (
     numpy_init_double_q,
@@ -65,6 +93,8 @@ from ikea_recommender_tpu_torch.convert import (
 )
 from ikea_recommender_tpu_torch.core.config import Config
 from ikea_recommender_tpu_torch.core.device import resolve_device
+from ikea_recommender_tpu_torch.core.distributed import data_rows
+from ikea_recommender_tpu_torch.core.mesh import DATA_AXIS, MeshSpec, make_mesh
 from ikea_recommender_tpu_torch.data.item_frequency import (
     load_unpopular_items,
     unpopular_mask as build_unpopular_mask,
@@ -78,6 +108,11 @@ from ikea_recommender_tpu_torch.data.replay_buffer import (
 from ikea_recommender_tpu_torch.data.tokenizer import Tokenizer, build_output_to_input_table
 from ikea_recommender_tpu_torch.eval.protocol import EvalProtocol
 from ikea_recommender_tpu_torch.models.families import model_config_from_train
+from ikea_recommender_tpu_torch.parallel.sharding import (
+    gather_tree,
+    make_sharded_train_step,
+    shard_state,
+)
 from ikea_recommender_tpu_torch.run.checkpoints import BestModelTracker, CheckpointManager
 from ikea_recommender_tpu_torch.train.state import (
     DoubleQState,
@@ -96,7 +131,6 @@ from ikea_recommender_tpu_torch.utils.logging_dicts import (
 )
 
 DOUBLE_Q_FAMILIES = ("sqn", "smorl")
-_MESH = "comes with the multi-GPU slice's second half (ROADMAP A.9b)"
 
 
 def load_div_embedding(path: str) -> np.ndarray:
@@ -125,6 +159,8 @@ class TrainOutcome:
     # of the span's loss sums, which waits for the device), eval
     # (validation passes).
     timing: Dict[str, float] = field(default_factory=dict)
+    # The final train state (on a mesh, this rank's slice of it).
+    state: Any = None
 
 
 def _eval_params_list(state, family):
@@ -148,6 +184,48 @@ def _device_train_data(buf: ReplayBuffer, dev: torch.device) -> Dict[str, torch.
     if buf.action_type is not None:
         cols["action_type"] = buf.action_type
     return {k: torch.as_tensor(v).to(dev) for k, v in cols.items()}
+
+
+def _device_train_data_process_sharded(buf: ReplayBuffer, mesh, dev: torch.device):
+    """This rank's block of the train rows on the device (reference
+    ``_device_train_data_process_sharded``): the rows padded with zeros to
+    ``D * per``, ``per = ceil(n / D)`` for the data axis' D, in contiguous
+    blocks, and the block of this rank's data index, the block the
+    reference's row-sharded global array puts on that data shard (the
+    model ranks of one data index hold the same block). Returns (data,
+    per, n)."""
+    D, d = mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
+    n = len(buf)
+    per = -(-n // D)
+    lo, hi = d * per, min((d + 1) * per, n)
+    host = _device_train_data(buf, torch.device("cpu"))  # views of the buffer's arrays
+    out = {}
+    for k, col in host.items():
+        block = torch.zeros((per,) + tuple(col.shape[1:]), dtype=col.dtype)
+        if hi > lo:
+            block[: hi - lo] = col[lo:hi]
+        out[k] = block.to(dev)
+    return out, per, n
+
+
+def _sharded_index_matrices(rng, n: int, per: int, D: int, batch_size: int):
+    """Per-data-shard epoch sampling (reference ``_sharded_index_matrices``):
+    shard d permutes its ``per`` rows (global rows ``[d per, (d + 1) per)``),
+    each batch takes B/D rows from every shard; rows past the real count
+    ``n`` (block padding) are invalid. One ``rng`` draws the D shards'
+    permutations in order, so every rank draws all of them and keeps its
+    own. -> (idx (n_b, D, B/D) shard-local ids, valid (n_b, D, B/D))."""
+    Bd = batch_size // D
+    n_b = -(-per // Bd)
+    idx = np.zeros((n_b, D, Bd), dtype=np.int32)
+    valid = np.zeros((n_b, D, Bd), dtype=bool)
+    for d in range(D):
+        perm = rng.permutation(per).astype(np.int32)
+        for i in range(n_b):
+            take = perm[i * Bd : (i + 1) * Bd]
+            idx[i, d, : len(take)] = take
+            valid[i, d, : len(take)] = (d * per + take) < n
+    return idx, valid
 
 
 def _window_index_matrices(perm: np.ndarray, batch_size: int):
@@ -207,7 +285,8 @@ def _restore_state(state, payload: Dict) -> None:
 
 
 def _check_supported(cfg: Config) -> None:
-    """Raises for what later slices of the port bring, naming the item."""
+    """Raises for a config the trainer cannot take, as the reference's
+    checks do."""
     t_cfg, p_cfg = cfg.train, cfg.parallel
     family = t_cfg.model
     if t_cfg.optimizer not in ("adam", "lazy_adam"):
@@ -218,21 +297,46 @@ def _check_supported(cfg: Config) -> None:
             t_cfg.double_q_optimizers == 1):
         raise ValueError("lazy optimizers need double_q_optimizers=2")
     if p_cfg.enabled:
-        raise NotImplementedError(f"parallel.data x parallel.model > 1: a device mesh {_MESH}")
-    if p_cfg.sharded_ce:
-        raise NotImplementedError(f"parallel.sharded_ce {_MESH}")
-    if p_cfg.process_sharded:
-        raise NotImplementedError(f"parallel.process_sharded {_MESH}")
+        if t_cfg.batch_size % p_cfg.data or t_cfg.val_batch_size % p_cfg.data:
+            raise ValueError(f"batch_size and val_batch_size must divide the data axis "
+                             f"({p_cfg.data})")
+        if p_cfg.sharded_ce and family not in ("gru4rec", "bidir_gru4rec"):
+            raise ValueError("sharded_ce supports gru4rec/bidir_gru4rec only")
+        if t_cfg.optimizer == "lazy_adam" and family == "sarm":
+            raise ValueError("optimizer='lazy_adam' on a mesh: mesh + lazy is not supported "
+                             "for sarm (head-0 dense split)")
+    elif p_cfg.sharded_ce:
+        raise ValueError("sharded_ce requires a multi-device mesh")
+    elif p_cfg.process_sharded:
+        raise ValueError("process_sharded requires a multi-device mesh")
     if t_cfg.double_q_optimizers not in (1, 2):
         raise ValueError(f"double_q_optimizers must be 1 or 2, got {t_cfg.double_q_optimizers}")
 
 
-def _lazy_qhead(t_cfg, model_cfg) -> bool:
+def _mesh(cfg: Config, dev: torch.device):
+    """This rank's mesh for ``parallel:`` (None for one device): the
+    initialized process group must have ``data x model`` ranks."""
+    p_cfg = cfg.parallel
+    if not p_cfg.enabled:
+        return None
+    n = p_cfg.num_devices
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        have = (f"a process group of {dist.get_world_size()}" if dist.is_initialized()
+                else "no process group")
+        raise RuntimeError(
+            f"parallel: data {p_cfg.data} x model {p_cfg.model} trains as {n} ranks, one "
+            f"process each, and this process has {have}: start them with `torchrun "
+            f"--nproc-per-node {n} -m ikea_recommender_tpu_torch.run.cli -f <yaml> --backend "
+            f"nccl` (or `--backend gloo`), or call core.distributed.initialize first")
+    return make_mesh(MeshSpec(p_cfg.data, p_cfg.model), device=dev)
+
+
+def _lazy_qhead(t_cfg, model_cfg, mesh=None, say=print) -> bool:
     """Whether the Q heads take lazy Adam: ``qhead_optimizer: lazy_adam`` on
     sqn, smorl or sarm (a no-op elsewhere, as the fast preset sets it for
     every family), under the reference's preconditions. Where one fails, a
-    setting from ``preset: fast`` falls back to dense Adam with a line, and
-    an explicit setting raises."""
+    setting from ``preset: fast`` falls back to dense Adam with a line
+    (``say``), and an explicit setting raises."""
     family = t_cfg.model
     if t_cfg.qhead_optimizer != "lazy_adam" or family not in ("sqn", "smorl", "sarm"):
         return False
@@ -245,10 +349,13 @@ def _lazy_qhead(t_cfg, model_cfg) -> bool:
     elif family == "sqn" and t_cfg.head_idx != 0:
         # the eval head would be the action-major q head
         blocker = "head_idx != 0"
+    elif mesh is not None and family == "sarm":
+        # sarm's lazy layout splits off a densely updated head 0
+        blocker = "sarm on a mesh (head-0 dense split)"
     if blocker is None:
         return True
     if getattr(t_cfg, "qhead_from_preset", False):
-        print(f"[trainer] {blocker}: preset-fast qhead_optimizer falls back to dense Adam")
+        say(f"[trainer] {blocker}: preset-fast qhead_optimizer falls back to dense Adam")
         return False
     raise ValueError(f"qhead_optimizer='lazy_adam' unsupported here: {blocker}")
 
@@ -275,11 +382,21 @@ def train(
     sqn and smorl), e.g. a JAX run's init; without it the params are drawn
     from ``cfg.seed`` by ``convert.numpy_init_params``.
     ``train.max_window_batches`` bounds the reference's scanned windows and
-    means nothing to this host loop: it is accepted and ignored."""
-    t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.metrics
+    means nothing to this host loop: it is accepted and ignored.
+
+    With ``parallel.data x parallel.model > 1`` every rank of the mesh
+    calls ``train`` with the same arguments; ``device`` is the rank's
+    (``core/distributed.py::local_device`` under nccl)."""
+    t_cfg, d_cfg, m_cfg, p_cfg = cfg.train, cfg.data, cfg.metrics, cfg.parallel
     family = t_cfg.model
     _check_supported(cfg)
     dev = resolve_device(device)
+    mesh = _mesh(cfg, dev)
+    is_main = mesh is None or mesh.rank == 0
+
+    def say(msg):
+        if is_main:
+            print(msg)
 
     # ---- data -----------------------------------------------------------
     if train_buf is None:
@@ -336,14 +453,15 @@ def train(
         if m_cfg.require_div_emb:
             raise ValueError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=2)
-        print(f"[trainer] WARNING: {msg}")
+        say(f"[trainer] WARNING: {msg}")
     div_emb = (
         np.asarray(div_embedding, np.float32) if div_embedding is not None
         else np.ones((d_cfg.num_items + 1, 1), np.float32)
     )
 
     # ---- model / state / step / protocol -------------------------------
-    model_cfg = model_config_from_train(t_cfg, d_cfg)
+    # on a mesh the vocab rows and action columns pad to the model axis
+    model_cfg = model_config_from_train(t_cfg, d_cfg, align=p_cfg.model if mesh else 1)
     rl = RLStepConfig(
         gamma=t_cfg.gamma,
         alpha=t_cfg.alpha,
@@ -359,7 +477,7 @@ def train(
     )
     lr, mv = t_cfg.learning_rate, t_cfg.optimizer_mv_dtype
     lazy_emb = t_cfg.optimizer == "lazy_adam"
-    lazy_qh = _lazy_qhead(t_cfg, model_cfg)
+    lazy_qh = _lazy_qhead(t_cfg, model_cfg, mesh, say)
     lazy_kw = dict(lazy_emb=lazy_emb, lazy_qh=lazy_qh, seed=cfg.seed, device=dev)
     if family in DOUBLE_Q_FAMILIES:
         pair = init_params if init_params is not None else numpy_init_double_q(
@@ -382,11 +500,20 @@ def train(
                                                device=dev)
         else:
             state, opt = make_train_state(params, model_cfg, lr, mv, seed=cfg.seed, device=dev)
-    step_fn = make_train_step(
-        model_cfg, opt, rl, div_embedding=div_emb, unpopular_mask=unpop_mask,
-        out_to_in=out_to_in, lazy_embedding_lr=lr if lazy_emb else None,
-        lazy_qhead_lr=lr if lazy_qh else None, device=dev,
-    )
+    # the full layout of one net, for putting the best model together
+    template = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                        _eval_params_list(state, family)[0])
+    step_kw = dict(rl=rl, div_embedding=div_emb, unpopular_mask=unpop_mask, out_to_in=out_to_in,
+                   lazy_embedding_lr=lr if lazy_emb else None,
+                   lazy_qhead_lr=lr if lazy_qh else None)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    if p_cfg.sharded_ce:
+        step_fn = make_sharded_train_step(model_cfg, opt, mesh, sharded_ce=True, **step_kw)
+    else:
+        step_fn = make_train_step(model_cfg, opt, mesh=mesh,
+                                  data_axis=None if mesh is None else DATA_AXIS, device=dev,
+                                  **step_kw)
     protocol = EvalProtocol(
         model_cfg,
         topk_hr_ndcg=m_cfg.topk_hr_ndcg,
@@ -402,11 +529,13 @@ def train(
         fused=m_cfg.fused_eval,
         type_names=m_cfg.action_type_names,
         eval_precision=m_cfg.eval_precision,
+        mesh=mesh,
         device=dev,
     )
 
     tracker = BestModelTracker(
-        cfg.exp_dir, metric_name=t_cfg.best_model_metric, mode=t_cfg.best_model_mode
+        cfg.exp_dir, metric_name=t_cfg.best_model_metric, mode=t_cfg.best_model_mode,
+        write_files=is_main,
     )
     dims = {
         "hidden_dim": t_cfg.hidden_state_size,
@@ -419,7 +548,11 @@ def train(
     ckpt_mngr = None
     start_epoch = 0
     log_counter = 0  # eval points so far; the tracker's epoch
-    best_live = None  # a copy of the whole-run best params
+    best_live = None  # a copy of the whole-run best params (on a mesh, this rank's slice)
+
+    def whole(params):
+        """The full params from every rank's slices (on every rank)."""
+        return params if mesh is None else gather_tree(params, mesh, template)
 
     # The checkpoint carries the best-model tracker beside the train state,
     # so a resume cannot change which model ships.
@@ -437,7 +570,7 @@ def train(
         }
 
     if t_cfg.checkpoint_dir:
-        ckpt_mngr = CheckpointManager(t_cfg.checkpoint_dir)
+        ckpt_mngr = CheckpointManager(t_cfg.checkpoint_dir, mesh=mesh)
         if t_cfg.resume:
             restored = ckpt_mngr.restore()
             if restored is not None:
@@ -446,13 +579,20 @@ def train(
                 if bm["has"]:
                     best_live = tree_map(lambda t: t.to(dev), restored["best_params"])
                     tracker.restore(bm["metric"], bm["epoch"], bm["model_idx"],
-                                    params=best_live, dims=dims)
+                                    params=whole(best_live), dims=dims)
                 log_counter = int(restored["log_counter"])
-                start_epoch = int(ckpt_mngr.latest_step())
-                print(f"[resume] restored checkpoint, continuing at epoch {start_epoch} "
-                      f"(best {tracker.metric_name}={tracker.best:.5f})")
+                start_epoch = int(ckpt_mngr.restored_step)
+                say(f"[resume] restored checkpoint, continuing at epoch {start_epoch} "
+                    f"(best {tracker.metric_name}={tracker.best:.5f})")
 
-    train_data = _device_train_data(train_buf, dev)
+    shard_rows = None  # (rows per data shard, real rows) with process_sharded
+    if p_cfg.process_sharded:
+        train_data, per, n_real = _device_train_data_process_sharded(train_buf, mesh, dev)
+        shard_rows = (per, n_real)
+    else:
+        train_data = _device_train_data(train_buf, dev)
+    # this rank's columns of each (n_b, B) index matrix
+    mine = slice(None) if mesh is None else data_rows(t_cfg.batch_size, mesh)
 
     # ---- warm-up eval, logged under Pretrain_ ----------------------------
     warmup_res = protocol.evaluate(
@@ -462,10 +602,13 @@ def train(
         warmup_res, topk_hr_ndcg=m_cfg.topk_hr_ndcg, topk_cov=m_cfg.topk_cov,
         prefix="Pretrain_", name="Val",
     )
-    if log_fn is not None:
+    if log_fn is not None and is_main:
         log_fn(pretrain_metrics, 0)
 
-    n_b = num_batches(len(train_buf), t_cfg.batch_size)
+    if shard_rows is not None:
+        n_b = -(-shard_rows[0] // (t_cfg.batch_size // mesh.size(DATA_AXIS)))
+    else:
+        n_b = num_batches(len(train_buf), t_cfg.batch_size)
     boundaries = sorted({int(n_b * p) for p in t_cfg.eval_at} - {0})
 
     logs: List[Dict[str, float]] = []
@@ -477,9 +620,15 @@ def train(
     for epoch in range(start_epoch, t_cfg.epochs):
         t_idx = time.perf_counter()
         rng = np.random.default_rng(cfg.seed * 100_003 + epoch)
-        idx_all, valid_all = _window_index_matrices(
-            rng.permutation(len(train_buf)).astype(np.int32), t_cfg.batch_size
-        )
+        if shard_rows is not None:
+            idx_all, valid_all = _sharded_index_matrices(
+                rng, shard_rows[1], shard_rows[0], mesh.size(DATA_AXIS), t_cfg.batch_size)
+            idx_mine, valid_mine = (a[:, mesh.index(DATA_AXIS)] for a in (idx_all, valid_all))
+        else:
+            idx_all, valid_all = _window_index_matrices(
+                rng.permutation(len(train_buf)).astype(np.int32), t_cfg.batch_size
+            )
+            idx_mine, valid_mine = idx_all[:, mine], valid_all[:, mine]
         timing["idx_build"] += time.perf_counter() - t_idx
         train_accum = protocol.init_accum()
         sup_sum = torch.zeros((), device=dev)
@@ -493,7 +642,8 @@ def train(
             spans.append((boundaries[-1], n_b, False))
         for span_i, (lo, hi, do_eval) in enumerate(spans):
             prof = None
-            if t_cfg.profile_dir is not None and epoch == start_epoch and span_i == 0:
+            if (t_cfg.profile_dir is not None and epoch == start_epoch and span_i == 0
+                    and is_main):
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -501,8 +651,8 @@ def train(
                 prof.start()
             if hi > lo:
                 t0 = time.perf_counter()
-                idx_dev = torch.as_tensor(idx_all[lo:hi], dtype=torch.int64).to(dev)
-                valid_dev = torch.as_tensor(valid_all[lo:hi]).to(dev)
+                idx_dev = torch.as_tensor(idx_mine[lo:hi], dtype=torch.int64).to(dev)
+                valid_dev = torch.as_tensor(valid_mine[lo:hi]).to(dev)
                 for i in range(hi - lo):
                     rows = idx_dev[i]
                     batch = {k: v.index_select(0, rows) for k, v in train_data.items()}
@@ -571,18 +721,21 @@ def train(
             if len(nets) > 1:
                 candidates.append((log_dict.get(f"Sec_{metric_name}", -np.inf), 2, nets[1]))
             value, model_idx, winner = max(candidates, key=lambda c: c[0])
-            if tracker(value, epoch=log_counter, params=winner, model_idx=model_idx,
-                       dims=dims):
+            # every rank reads the same metrics, so every rank takes the
+            # same branch (on a mesh, a collective: the winner put together)
+            if tracker.improved(value):
+                tracker(value, epoch=log_counter, params=whole(winner), model_idx=model_idx,
+                        dims=dims)
                 # A copy: the next step's Adam moves the state's params in
                 # place, and the best must not move with them.
                 best_live = tree_map(torch.clone, winner)
 
             logs.append(log_dict)
-            if log_fn is not None:
+            if log_fn is not None and is_main:
                 log_fn(log_dict, log_counter)
             if progress:
-                print(f"epoch {epoch + 1} batch {hi}/{n_b} "
-                      f"{metric_name}={value:.5f} (best {tracker.best:.5f})")
+                say(f"epoch {epoch + 1} batch {hi}/{n_b} "
+                    f"{metric_name}={value:.5f} (best {tracker.best:.5f})")
             log_counter += 1
             # reset the training window (reference trainGRU.py:385-395)
             train_accum = protocol.init_accum()
@@ -596,11 +749,12 @@ def train(
     # ---- test with the reloaded best model ------------------------------
     if best_live is not None:
         best_params = best_live
-    elif os.path.exists(tracker.params_path):
+    elif mesh is None and os.path.exists(tracker.params_path):
         best_params = tracker.load_best(dev)
     else:
         best_params = _eval_params_list(state, family)[0]
     test_res = protocol.evaluate(best_params, test_buf, t_cfg.val_batch_size)
+    best_params = whole(best_params)
     test_metrics = get_logging_dict_test(
         test_res, topk_hr_ndcg=m_cfg.topk_hr_ndcg, topk_cov=m_cfg.topk_cov,
         real_test=real_test,
@@ -608,12 +762,13 @@ def train(
     if m_cfg.action_type_names:
         test_metrics.update(get_logging_dict_by_type(
             test_res, m_cfg.topk_hr_ndcg, name="Test" if real_test else "Best_Val"))
-    if log_fn is not None:
+    if log_fn is not None and is_main:
         log_fn(test_metrics, log_counter)
-    with open(os.path.join(cfg.exp_dir, "test_metrics.json"), "w") as fh:
-        json.dump(test_metrics, fh, indent=2)
+    if is_main:
+        with open(os.path.join(cfg.exp_dir, "test_metrics.json"), "w") as fh:
+            json.dump(test_metrics, fh, indent=2)
 
-    if cfg.experiment.save_pretrained_embeddings:
+    if cfg.experiment.save_pretrained_embeddings and is_main:
         np.save(os.path.join(cfg.exp_dir, "embedding_weights.npy"),
                 best_params["backbone"]["embedding"].detach().cpu().numpy())
 
@@ -627,4 +782,5 @@ def train(
         throughput_sessions_per_sec=throughput,
         pretrain_metrics=pretrain_metrics,
         timing=dict(timing),
+        state=state,
     )

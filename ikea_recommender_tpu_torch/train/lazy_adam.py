@@ -129,23 +129,46 @@ def emb_adam_update(
     step: torch.Tensor,  # int32 count before this update (bias corr uses + 1)
     lr: float,
     frozen_row: Optional[int] = None,
+    row_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, EmbAdamState]:
     """Lazy Adam on the embedding rows ``ids``; ``frozen_row`` (the pad row
     when its embedding is frozen) keeps its param and moments. The
     reference's ``selected`` predication (an identity write for the
     double-Q net that a step does not train) has no counterpart: the steps
     skip that net, which leaves it bit for bit as the identity write
-    does."""
+    does.
+
+    ``row_offset``: ``embedding`` is the block of a table's rows that
+    starts at this global id (a mesh's model shard), ``ids`` are global and
+    may name rows of other blocks, which this update skips. Without a host
+    sync: such an id joins the run of the block's last row with a zero
+    gradient (adding 0.0 leaves the run's sum as it was), and a run that no
+    id of the block reaches writes back what it read. The ids of the block
+    keep their order in the stable sort, so each run is summed as one
+    process sums it."""
     ids = ids.reshape(-1).long()
+    g_in = row_grads.reshape(ids.shape[0], -1).to(torch.float32)
+    owned = None
+    if row_offset is not None:
+        V = embedding.shape[0]
+        ids = ids - row_offset
+        owned = (ids >= 0) & (ids < V)
+        ids = torch.where(owned, ids, V - 1)
+        g_in = torch.where(owned[:, None], g_in, 0.0)
+        if frozen_row is not None:
+            frozen_row -= row_offset
     sids, order = torch.sort(ids, stable=True)
-    g = _run_sums(sids, row_grads.reshape(ids.shape[0], -1).to(torch.float32)[order])
+    g = _run_sums(sids, g_in[order])
     mv_rows = state.mv[sids].to(torch.float32)
     p_rows = embedding[sids].to(torch.float32)
     t = (step + 1).to(torch.float32)
     upd, m, v = _adam_rows(g, mv_rows, t, lr)
     p_new, mv_new = p_rows - upd, torch.cat([m, v], dim=1)
-    if frozen_row is not None:
-        keep = (sids == frozen_row)[:, None]
+    keep = None if frozen_row is None else (sids == frozen_row)[:, None]
+    if owned is not None:  # the runs no id of this block reaches
+        reached = _run_sums(sids, owned[order].to(torch.float32)[:, None]) > 0
+        keep = ~reached if keep is None else keep | ~reached
+    if keep is not None:
         p_new = torch.where(keep, p_rows, p_new)
         mv_new = torch.where(keep, mv_rows, mv_new)
     embedding[sids] = p_new.to(embedding.dtype)

@@ -3,8 +3,9 @@ double-Q steps of sqn and smorl, and the self-bootstrapped step of sarm.
 
 Port of ``ikea_recommender_tpu/train/steps.py`` (``RLStepConfig``,
 ``_masked_mean``, ``_ce_loss``, ``_fused_sup_ce``, ``_apply_grad_mask``,
-``ce_train_step``, ``_double_q_run``, ``sqn_train_step``,
-``smorl_train_step``, ``sarm_train_step``, the lazy optimizers' steps
+``ce_train_step``, ``_double_q_run`` (``double_q_train_step``),
+``sqn_train_step``, ``smorl_train_step``, ``sarm_train_step``, the lazy
+optimizers' steps
 (``LazyCfg``, ``ce_train_step_lazy``, ``_lazy_double_q_run``,
 ``_lazy_diff_parts``, ``_dense_part``, ``_q_from_rows``,
 ``_lazy_apply_updates`` and the three ``*_train_step_lazy``),
@@ -78,8 +79,13 @@ global batch's dropout mask, drawn from the state's generator, and every
 rank draws the same coin. The ``*_loss_and_grads`` functions return the
 global metrics and this rank's slice of the global gradients (summed over
 the data axis in one collective, ``parallel/sharding.py::
-allreduce_grads``), and Adam moves each slice. The lazy optimizers on a
-mesh come with ROADMAP A.9b.
+allreduce_grads``), and Adam moves each slice. The lazy steps on a mesh
+(all but sarm's) gather the embedding rows as the dense arm's backbone
+does, keep the lazy Q head replicated (its target action from the
+data-parallel islands, ``parallel/q_kernels.py::dp_*_am``), sum the dense
+part's gradients over the data axis, and gather the lazy rows' ids and
+gradients over it in one collective, so that every rank updates its rows
+from the global batch's.
 """
 
 from __future__ import annotations
@@ -92,9 +98,9 @@ import torch.nn.functional as F
 
 from ikea_recommender_tpu_torch.convert import tree_leaves, tree_map, tree_unflatten
 from ikea_recommender_tpu_torch.core.device import resolve_device
-from ikea_recommender_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
+from ikea_recommender_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, pvary
 from ikea_recommender_tpu_torch.models import backbone
-from ikea_recommender_tpu_torch.models.backbone import embedding_grad_mask
+from ikea_recommender_tpu_torch.models.backbone import embedding_grad_mask, embedding_rows
 from ikea_recommender_tpu_torch.models.families import (
     ModelConfig,
     apply_features,
@@ -126,6 +132,8 @@ from ikea_recommender_tpu_torch.parallel.fused_ce import (
     sharded_fused_softmax_ce_topk,
 )
 from ikea_recommender_tpu_torch.parallel.q_kernels import (
+    dp_linear_argmax_am,
+    dp_weighted_multihead_argmax_am,
     sharded_argmax,
     sharded_linear_argmax,
     sharded_multihead_max,
@@ -135,7 +143,11 @@ from ikea_recommender_tpu_torch.parallel.q_kernels import (
     sharded_weighted_multihead_argmax,
 )
 from ikea_recommender_tpu_torch.parallel.sharding import allreduce_grads
-from ikea_recommender_tpu_torch.parallel.topk import sharded_softmax_ce, sharded_top_k
+from ikea_recommender_tpu_torch.parallel.topk import (
+    sharded_embedding_lookup,
+    sharded_softmax_ce,
+    sharded_top_k,
+)
 from ikea_recommender_tpu_torch.train.lazy_adam import (
     emb_adam_update,
     gather_qhead_rows,
@@ -285,15 +297,14 @@ def _sup_ce_loss(params, batch, model_cfg: ModelConfig, generator, x_emb=None, m
               inputs_embeds=x_emb, mesh=mesh,
               keep_mask=_keep_rows(model_cfg, batch, generator, mesh, data_axis))
     n = batch.get("n_valid")
+    h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
     if model_cfg.fused_ce:
-        h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
         return _fused_sup_ce(params, model_cfg, h, batch["action"], batch["valid"], mesh, n)
-    if mesh is not None:
-        (logits,) = apply_model(params, model_cfg, batch["state"], batch["true_len"], **{
-            k: v for k, v in kw.items() if k != "inputs_embeds"})
-    else:
-        h = apply_features(params, model_cfg, batch["state"], batch["true_len"], **kw)
-        logits = mask_pad_logits(model_cfg, linear_apply(params["sup_head"], h))
+    offset = None
+    if mesh is not None:  # this rank's columns, as apply_model(mesh=) takes them
+        h = pvary(h, mesh, MODEL_AXIS)
+        offset = mesh.index(MODEL_AXIS) * params["sup_head"]["bias"].shape[-1]
+    logits = mask_pad_logits(model_cfg, linear_apply(params["sup_head"], h), offset)
     return _ce_loss(logits, batch["action"], batch["valid"], mesh, n)
 
 
@@ -360,7 +371,9 @@ def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz
                            inputs_embeds=None if lz is None else lz.get("x_emb"), mesh=mesh)
         sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"], mesh, n)
         qh, qb = p_main["q_head"], p_boot["q_head"]
-        if mesh is None:
+        # the head whole on this rank: no mesh, or the lazy head replicated
+        whole = mesh is None or "kernel_am" in qh
+        if whole:
             q = _q_at(h, qh, batch["action"], lz)[:, 0]
         else:
             q = sharded_row_logit(h, qh["kernel"], qh["bias"], batch["action"], mesh)
@@ -368,11 +381,16 @@ def _sqn_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, lz
             h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"],
                                     mesh=mesh)
             h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len, mesh=mesh)
-            if mesh is None:
+            if whole:
                 w, am = _kernel(qh)
-                max_a_next = fused_linear_argmax(
-                    h_next, w, qh["bias"], cfg.action_dim, cfg.head_precision, action_major=am
-                )
+                if mesh is None:
+                    max_a_next = fused_linear_argmax(
+                        h_next, w, qh["bias"], cfg.action_dim, cfg.head_precision,
+                        action_major=am
+                    )
+                else:  # the data-parallel island: B5 am on this rank's rows
+                    max_a_next = dp_linear_argmax_am(h_next, w, qh["bias"], cfg.action_dim, mesh,
+                                                     cfg.head_precision)
                 q_next_boot = _q_at(h_next_boot, qb, max_a_next)[:, 0]
             else:
                 max_a_next = sharded_linear_argmax(
@@ -444,7 +462,8 @@ def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, 
         else:
             sup_loss = _fused_sup_ce(p_main, cfg, h, batch["action"], batch["valid"], mesh, n)
         qh, qb = p_main["q_heads"], p_boot["q_heads"]
-        if mesh is None:
+        whole = mesh is None or "kernel_am" in qh  # as in _sqn_loss
+        if whole:
             q = _q_at(h, qh, batch["action"], lz)  # (B, K)
         else:
             q = sharded_multihead_row_logit(h, qh["kernel"], qh["bias"], batch["action"], mesh)
@@ -452,12 +471,16 @@ def _smorl_loss(p_main, p_boot, batch, cfg: ModelConfig, rl: RLStepConfig, aux, 
             h_next = apply_features(p_main, cfg, batch["next_state"], batch["true_next_len"],
                                     mesh=mesh)
             h_next_boot = apply_features(p_boot, cfg, batch["next_state"], boot_len, mesh=mesh)
-            if mesh is None:
+            if whole:
                 wk, am = _kernel(qh)
-                max_a_next = fused_weighted_multihead_argmax(
-                    h_next, wk, qh["bias"], w, cfg.action_dim, cfg.head_precision,
-                    action_major=am
-                )
+                if mesh is None:
+                    max_a_next = fused_weighted_multihead_argmax(
+                        h_next, wk, qh["bias"], w, cfg.action_dim, cfg.head_precision,
+                        action_major=am
+                    )
+                else:  # the data-parallel island: B6 am on this rank's rows
+                    max_a_next = dp_weighted_multihead_argmax_am(
+                        h_next, wk, qh["bias"], w, cfg.action_dim, mesh, cfg.head_precision)
                 q_next_boot = _q_at(h_next_boot, qb, max_a_next)
             else:
                 max_a_next = sharded_weighted_multihead_argmax(
@@ -696,20 +719,33 @@ class LazyCfg:
         return self.emb_lr is not None or self.qh_lr is not None
 
 
-def _lazy_diff(p: Dict, family: str, lazy: LazyCfg, batch) -> Tuple[Dict, Dict]:
+def _lazy_diff(p: Dict, model_cfg: ModelConfig, lazy: LazyCfg, batch, mesh=None
+               ) -> Tuple[Dict, Dict]:
     """(diff, pieces) of one net on the lazy paths. ``diff`` holds the
     leaves autograd differentiates, fresh: ``dense`` (the tree dense Adam
     owns, ``train.state.dense_part``), and the rows gathered outside
     autograd whose gradients drive the sparse updates: ``x_emb`` (B, T, E)
     embedding rows, and ``w_rows`` (B, K, F) / ``b_cols`` (K, B) of the Q
     head at the batch's actions in sorted order. ``pieces`` keeps the
-    sorted ids, the inverse permutation and the gathered rows."""
+    embedding ids, the sorted actions, the inverse permutation and the
+    gathered rows. On a ``mesh`` whose model axis splits the table, the
+    rows are the owner-masked gather summed over the model axis, as the
+    dense arm's backbone gathers them; the lazy Q head is replicated, so
+    its rows are this rank's own."""
+    family = model_cfg.family
     lazy_emb, lazy_qh = lazy.emb_lr is not None, lazy.qh_lr is not None
     dense = dense_part(p, family, lazy_emb, lazy_qh)
     diff = {"dense": tree_map(lambda t: t.detach().requires_grad_(), dense)}
     pieces: Dict = {}
     if lazy_emb:
-        diff["x_emb"] = p["backbone"]["embedding"][batch["state"].long()].detach().requires_grad_()
+        table, states = p["backbone"]["embedding"], batch["state"]
+        with torch.no_grad():
+            if embedding_rows(model_cfg.backbone, mesh)[0] < model_cfg.backbone.num_embeddings:
+                x = sharded_embedding_lookup(table, states, mesh)
+            else:
+                x = table[states.long()]
+        diff["x_emb"] = x.detach().requires_grad_()
+        pieces["emb_ids"] = states.reshape(-1)
     if lazy_qh:
         qh = p[QH_KEY[family]]
         b = qh["bias_rest"] if family == "sarm" else qh["bias"]
@@ -718,7 +754,7 @@ def _lazy_diff(p: Dict, family: str, lazy: LazyCfg, batch) -> Tuple[Dict, Dict]:
                                            b.shape[0] if b.dim() == 2 else 1)
         diff["w_rows"] = w_rows.detach().requires_grad_()
         diff["b_cols"] = b_cols.detach().requires_grad_()
-        pieces = {"sids": sids, "inv": inv, "w_rows": w_rows, "b_cols": b_cols}
+        pieces.update(sids=sids, inv=inv, w_rows=w_rows, b_cols=b_cols)
     return diff, pieces
 
 
@@ -744,26 +780,86 @@ def _lazy_view(p: Dict, diff: Dict, pieces: Dict, family: str) -> Tuple[Dict, Di
     return view, lz
 
 
-def _lazy_grads(total, diff, lazy: LazyCfg, model_cfg: ModelConfig) -> Dict:
+def _lazy_grads(total, diff, lazy: LazyCfg, model_cfg: ModelConfig, mesh=None) -> Dict:
     grads = _grads(total, diff)
     if lazy.emb_lr is None:  # the table is dense: its pad row's gradient masked
-        grads["dense"]["rest"] = _apply_grad_mask(grads["dense"]["rest"], model_cfg)
+        grads["dense"]["rest"] = _apply_grad_mask(grads["dense"]["rest"], model_cfg, mesh)
     return grads
 
 
+def _as_f32(ids: torch.Tensor) -> torch.Tensor:
+    """int ids as float32 bits, so that they cross in one buffer with the
+    gradients (a collective copies bits; :func:`_as_ids` reads them back)."""
+    return ids.to(torch.int32).view(torch.float32)
+
+
+def _as_ids(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32).long()
+
+
+def _lazy_over_data(metrics: Dict, grads: Dict, pieces: Dict, mesh, data_axis
+                    ) -> Tuple[Dict, Dict, Dict]:
+    """(metrics, grads, pieces) of the global batch where it is split over
+    a mesh's data axis: the loss metrics and the dense gradients summed
+    over it (``_over_data``), and the lazy rows' ids and gradients gathered
+    over it in one collective, in data-index order, so that the row
+    updates see the global batch's rows in its own order. The embedding's
+    (ids, row gradients) travel as (B T, 1 + E) and the Q head's (batch
+    actions, weight rows, bias entries) as (B, 1 + K F + K), both in batch
+    order; the Q head's are sorted again after the gather."""
+    metrics, dense = _over_data(metrics, grads["dense"], mesh, data_axis)
+    grads = {**grads, "dense": dense}
+    if mesh is None or data_axis is None or mesh.size(DATA_AXIS) == 1:
+        return metrics, grads, pieces
+    parts = {}
+    if "x_emb" in grads:
+        g = grads["x_emb"]
+        parts["emb"] = torch.cat([_as_f32(pieces["emb_ids"])[:, None],
+                                  g.reshape(-1, g.shape[-1]).to(torch.float32)], dim=1)
+    K = 0
+    if "w_rows" in grads:
+        inv, gw, gb = pieces["inv"], grads["w_rows"], grads["b_cols"]
+        B, K, Fd = gw.shape
+        actions = pieces["sids"][inv]  # batch order
+        parts["qh"] = torch.cat([_as_f32(actions)[:, None], gw[inv].reshape(B, K * Fd),
+                                 gb[:, inv].T], dim=1)
+    flat = mesh.gather(torch.cat([x.reshape(-1) for x in parts.values()]), DATA_AXIS)  # (D, n)
+    pieces, at = dict(pieces), 0
+    for kind, x in parts.items():
+        w = x.shape[1]
+        rows = flat[:, at:at + x.numel()].reshape(-1, w)  # the global batch's, in order
+        at += x.numel()
+        if kind == "emb":
+            pieces["emb_ids"] = _as_ids(rows[:, 0])
+            grads["x_emb"] = rows[:, 1:]
+        else:
+            sids, order = torch.sort(_as_ids(rows[:, 0]), stable=True)
+            rows = rows[order]
+            grads["w_rows"] = rows[:, 1:w - K].reshape(len(sids), K, -1)
+            grads["b_cols"] = rows[:, w - K:].T
+            # the update gathers the global sorted rows from the replicated head
+            pieces.update(sids=sids, w_rows=None, b_cols=None)
+    return metrics, grads, pieces
+
+
 def lazy_apply_updates(p: Dict, grads: Dict, pieces: Dict, opt_state: LazyAdamState, opt: Adam,
-                       family: str, model_cfg: ModelConfig, lazy: LazyCfg, batch) -> None:
+                       family: str, model_cfg: ModelConfig, lazy: LazyCfg, mesh=None) -> None:
     """Dense Adam on the dense part, lazy Adam on the touched embedding rows
     and/or Q-head rows (bias-corrected with the net's count before this
-    update), in place; then the count advances."""
+    update), in place; then the count advances. On a ``mesh`` each rank
+    updates the rows of its block of the table (the frozen pad row on its
+    owner) and the whole replicated Q head, from the global batch's rows
+    (:func:`_lazy_over_data`), so the Q head's replicas stay bit-equal."""
     lazy_emb, lazy_qh = lazy.emb_lr is not None, lazy.qh_lr is not None
     opt.update(grads["dense"], opt_state.rest, dense_part(p, family, lazy_emb, lazy_qh))
     if lazy_emb:
         bb = model_cfg.backbone
         g_x = grads["x_emb"]
-        emb_adam_update(p["backbone"]["embedding"], opt_state.emb, batch["state"].reshape(-1),
+        rows, first = embedding_rows(bb, mesh)
+        emb_adam_update(p["backbone"]["embedding"], opt_state.emb, pieces["emb_ids"],
                         g_x.reshape(-1, g_x.shape[-1]), opt_state.count, lazy.emb_lr,
-                        frozen_row=None if bb.train_pad_embed else bb.padding_idx)
+                        frozen_row=None if bb.train_pad_embed else bb.padding_idx,
+                        row_offset=None if rows == bb.num_embeddings else first)
     if lazy_qh:
         qh = p[QH_KEY[family]]
         qhead_row_adam_update(
@@ -776,48 +872,58 @@ def lazy_apply_updates(p: Dict, grads: Dict, pieces: Dict, opt_state: LazyAdamSt
 
 def lazy_loss_and_grads(params: Dict, batch, model_cfg: ModelConfig, lazy: LazyCfg,
                         rl: Optional[RLStepConfig] = None, generator=None, *, boot=None,
-                        aux: Optional[Dict] = None) -> Tuple[Dict, Dict, Dict]:
+                        aux: Optional[Dict] = None, mesh=None, data_axis: Optional[str] = None
+                        ) -> Tuple[Dict, Dict, Dict]:
     """(metrics, grads, pieces) of one net's lazy step: the CE families'
     (``generator`` draws dropout), sarm's, or with ``boot`` (the other net
     of the pair) sqn's and smorl's. ``grads`` is in ``_lazy_diff``'s
     layout: ``dense`` (with the pad row's gradient masked where the table
-    is dense), ``x_emb``, ``w_rows``, ``b_cols``."""
+    is dense), ``x_emb``, ``w_rows``, ``b_cols``. On a ``mesh`` with
+    ``data_axis``, the global losses, the dense gradients summed over the
+    data axis and the global batch's lazy rows (:func:`_lazy_over_data`)."""
     fam = model_cfg.family
-    diff, pieces = _lazy_diff(params, fam, lazy, batch)
+    batch = _count_valid(batch, mesh, data_axis)
+    diff, pieces = _lazy_diff(params, model_cfg, lazy, batch, mesh)
     view, lz = _lazy_view(params, diff, pieces, fam)
     with torch.enable_grad():
         if fam in ("gru4rec", "bidir_gru4rec"):
-            sup_loss = total = _sup_ce_loss(view, batch, model_cfg, generator, lz.get("x_emb"))
+            sup_loss = total = _sup_ce_loss(view, batch, model_cfg, generator, lz.get("x_emb"),
+                                            mesh, data_axis)
             metrics = {"sup_loss": sup_loss.detach(), "q_loss": torch.zeros_like(sup_loss)}
         elif fam == "sarm":
             total, sup_loss, q_loss = _sarm_loss(view, batch, model_cfg, rl, lz)
             metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach()}
         else:
             loss_fn = _sqn_loss if fam == "sqn" else _smorl_loss
-            total, sup_loss, q_loss, target = loss_fn(view, boot, batch, model_cfg, rl, aux, lz)
+            total, sup_loss, q_loss, target = loss_fn(view, boot, batch, model_cfg, rl, aux, lz,
+                                                      mesh)
             metrics = {"sup_loss": sup_loss.detach(), "q_loss": q_loss.detach(),
                        "target_action": target}
-        grads = _lazy_grads(total, diff, lazy, model_cfg)
-    return metrics, grads, pieces
+        grads = _lazy_grads(total, diff, lazy, model_cfg, mesh)
+    return _lazy_over_data(metrics, grads, pieces, mesh, data_axis)
 
 
 def ce_train_step_lazy(state: TrainState, batch, model_cfg: ModelConfig, opt: Adam,
-                       lr: float) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                       lr: float, mesh=None, data_axis: Optional[str] = None
+                       ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """The CE step with lazy embedding Adam (``optimizer: lazy_adam``): the
     table's rows are gathered outside autograd, and only the touched rows'
-    param and moments are read or written; dense Adam owns the rest."""
+    param and moments are read or written; dense Adam owns the rest. On a
+    ``mesh``, each rank updates its block of the table's rows."""
     lazy = LazyCfg(emb_lr=lr)
     metrics, grads, pieces = lazy_loss_and_grads(state.params, batch, model_cfg, lazy,
-                                                 generator=state.generator)
+                                                 generator=state.generator, mesh=mesh,
+                                                 data_axis=data_axis)
     lazy_apply_updates(state.params, grads, pieces, state.opt_state, opt, model_cfg.family,
-                       model_cfg, lazy, batch)
+                       model_cfg, lazy, mesh)
     state.step += 1
     return state, metrics
 
 
 def lazy_double_q_train_step(state: DoubleQState, batch, model_cfg: ModelConfig, opt: Adam,
                              rl: RLStepConfig, aux: Dict, lazy: LazyCfg,
-                             coin: Optional[int] = None):
+                             coin: Optional[int] = None, mesh=None,
+                             data_axis: Optional[str] = None):
     """One sqn or smorl step with lazy embedding rows and/or lazy
     action-major Q-head rows: the loss of :func:`double_q_train_step`, the
     coin drawn the same way. Only the main net moves. The reference writes
@@ -825,26 +931,52 @@ def lazy_double_q_train_step(state: DoubleQState, batch, model_cfg: ModelConfig,
     identity write kept out of its ``lax.cond``); skipping that net leaves
     it bit for bit the same, since ``w - 0.0`` is ``w`` and a moment cast to
     fp32 and back to bf16 is unchanged. Only the main net's count
-    advances."""
+    advances. On a ``mesh`` the lazy Q head is replicated and its target
+    action comes from the data-parallel island (B5 or B6 action-major on
+    this rank's rows)."""
     main = _main_net(state, model_cfg, coin)
     p_main = state.params[main]
     metrics, grads, pieces = lazy_loss_and_grads(p_main, batch, model_cfg, lazy, rl,
-                                                 boot=state.params[1 - main], aux=aux)
+                                                 boot=state.params[1 - main], aux=aux,
+                                                 mesh=mesh, data_axis=data_axis)
     lazy_apply_updates(p_main, grads, pieces, state.opt_state[main], opt, model_cfg.family,
-                       model_cfg, lazy, batch)
+                       model_cfg, lazy, mesh)
     state.step += 1
     return state, metrics
 
 
-def sqn_train_step_lazy(state, batch, model_cfg, opt, rl, lazy, coin=None):
+def sqn_train_step(state: DoubleQState, batch, model_cfg: ModelConfig, opt: Adam,
+                   rl: RLStepConfig, mesh=None, data_axis: Optional[str] = None,
+                   coin: Optional[int] = None):
+    """One sqn step (reference ``sqn_train_step``): :func:`double_q_train_step`
+    with no aux. ``coin`` as that function takes it."""
+    return double_q_train_step(state, batch, model_cfg, opt, rl, {}, coin, mesh, data_axis)
+
+
+def smorl_train_step(state: DoubleQState, batch, model_cfg: ModelConfig, opt: Adam,
+                     rl: RLStepConfig, div_embedding, unpopular_mask, out_to_in=None,
+                     mesh=None, data_axis: Optional[str] = None, coin: Optional[int] = None):
+    """One smorl step (reference ``smorl_train_step``): the frozen diversity
+    embedding (V_in, E), the unpopular mask (A,) and ``out_to_in`` as
+    arrays or tensors, then :func:`double_q_train_step`."""
+    aux = _smorl_aux(model_cfg, rl, div_embedding, unpopular_mask, out_to_in,
+                     tree_leaves(state.params)[0].device)
+    return double_q_train_step(state, batch, model_cfg, opt, rl, aux, coin, mesh, data_axis)
+
+
+def sqn_train_step_lazy(state, batch, model_cfg, opt, rl, lazy, coin=None, mesh=None,
+                        data_axis=None):
     """The sqn step with lazy parts (reference ``sqn_train_step_lazy``)."""
-    return lazy_double_q_train_step(state, batch, model_cfg, opt, rl, {}, lazy, coin)
+    return lazy_double_q_train_step(state, batch, model_cfg, opt, rl, {}, lazy, coin, mesh,
+                                    data_axis)
 
 
-def smorl_train_step_lazy(state, batch, model_cfg, opt, rl, lazy, aux, coin=None):
+def smorl_train_step_lazy(state, batch, model_cfg, opt, rl, lazy, aux, coin=None, mesh=None,
+                          data_axis=None):
     """The smorl step with lazy parts (reference ``smorl_train_step_lazy``);
     ``aux`` as :func:`make_train_step` prepares it."""
-    return lazy_double_q_train_step(state, batch, model_cfg, opt, rl, aux, lazy, coin)
+    return lazy_double_q_train_step(state, batch, model_cfg, opt, rl, aux, lazy, coin, mesh,
+                                    data_axis)
 
 
 def sarm_train_step_lazy(state: TrainState, batch, model_cfg: ModelConfig, opt: Adam,
@@ -854,9 +986,25 @@ def sarm_train_step_lazy(state: TrainState, batch, model_cfg: ModelConfig, opt: 
     The loss of :func:`sarm_train_step`."""
     metrics, grads, pieces = lazy_loss_and_grads(state.params, batch, model_cfg, lazy, rl)
     lazy_apply_updates(state.params, grads, pieces, state.opt_state, opt, "sarm", model_cfg,
-                       lazy, batch)
+                       lazy)
     state.step += 1
     return state, metrics
+
+
+def _smorl_aux(model_cfg: ModelConfig, rl: RLStepConfig, div_embedding, unpopular_mask,
+               out_to_in, dev) -> Dict:
+    """The device tensors the smorl step reads besides the batch."""
+    if div_embedding is None or unpopular_mask is None:
+        raise ValueError("SMORL needs div_embedding and unpopular_mask")
+    K = model_cfg.num_q_heads
+    if len(rl.q_weights) < K:
+        raise ValueError(f"q_weights {rl.q_weights} has fewer than the {K} heads")
+    return {
+        "q_weights": torch.tensor(rl.q_weights[:K], dtype=torch.float32, device=dev),
+        "div_embedding": torch.as_tensor(div_embedding, dtype=torch.float32, device=dev),
+        "unpopular_mask": torch.as_tensor(unpopular_mask, device=dev).to(torch.bool),
+        "out_to_in": None if out_to_in is None else torch.as_tensor(out_to_in, device=dev),
+    }
 
 
 class TrainStep:
@@ -912,8 +1060,9 @@ def make_train_step(
     ``model_config_from_train(..., align=n_model)`` so that the model axis
     divides the padded action dim; with ``data_axis="data"`` the batch is
     this rank's rows of a batch split over the data axis. ``device`` must
-    be the mesh's. The lazy optimizers on a mesh raise, naming their
-    ROADMAP item."""
+    be the mesh's. The lazy optimizers run on a mesh for every family but
+    sarm, whose lazy layout splits off a densely updated head 0 (the
+    reference's "mesh + lazy is not supported for sarm")."""
     dev = resolve_device(device)
     fam = model_cfg.family
     rl = RLStepConfig() if rl is None else rl
@@ -930,7 +1079,7 @@ def make_train_step(
     if fam in ("gru4rec", "bidir_gru4rec"):
         if lazy.on:
             return TrainStep(lambda state, batch: ce_train_step_lazy(
-                state, batch, model_cfg, opt, lazy_embedding_lr), dev)
+                state, batch, model_cfg, opt, lazy_embedding_lr, mesh, data_axis), dev)
         return TrainStep(lambda state, batch: ce_train_step(
             state, batch, model_cfg, opt, mesh, data_axis), dev)
     if fam == "sarm":
@@ -943,23 +1092,13 @@ def make_train_step(
         )
     aux: Dict = {}
     if fam == "smorl":
-        if div_embedding is None or unpopular_mask is None:
-            raise ValueError("SMORL needs div_embedding and unpopular_mask")
-        K = model_cfg.num_q_heads
-        if len(rl.q_weights) < K:
-            raise ValueError(f"q_weights {rl.q_weights} has fewer than the {K} heads")
-        aux = {
-            "q_weights": torch.tensor(rl.q_weights[:K], dtype=torch.float32, device=dev),
-            "div_embedding": torch.as_tensor(div_embedding, dtype=torch.float32, device=dev),
-            "unpopular_mask": torch.as_tensor(unpopular_mask, device=dev).to(torch.bool),
-            "out_to_in": None if out_to_in is None else torch.as_tensor(out_to_in, device=dev),
-        }
+        aux = _smorl_aux(model_cfg, rl, div_embedding, unpopular_mask, out_to_in, dev)
     if lazy.on and fam == "sqn":
         return TrainStep(lambda state, batch, coin=None: sqn_train_step_lazy(
-            state, batch, model_cfg, opt, rl, lazy, coin), dev, aux)
+            state, batch, model_cfg, opt, rl, lazy, coin, mesh, data_axis), dev, aux)
     if lazy.on:
         return TrainStep(lambda state, batch, coin=None: smorl_train_step_lazy(
-            state, batch, model_cfg, opt, rl, lazy, aux, coin), dev, aux)
+            state, batch, model_cfg, opt, rl, lazy, aux, coin, mesh, data_axis), dev, aux)
     return TrainStep(
         lambda state, batch, coin=None: double_q_train_step(
             state, batch, model_cfg, opt, rl, aux, coin, mesh, data_axis
@@ -971,10 +1110,8 @@ def make_train_step(
 
 def _check_mesh(model_cfg: ModelConfig, mesh, data_axis, dev: torch.device, lazy: LazyCfg):
     """Raises for a step the mesh cannot take."""
-    if lazy.on:
-        raise NotImplementedError(
-            "the lazy optimizers on a mesh come with the multi-GPU slice's second half "
-            "(ROADMAP A.9b)")
+    if lazy.on and model_cfg.family == "sarm":
+        raise ValueError("mesh + lazy is not supported for sarm")
     if data_axis not in (None, DATA_AXIS):
         raise ValueError(f"data_axis must be None or {DATA_AXIS!r}, got {data_axis!r}")
     if mesh.device.type != dev.type:

@@ -14,6 +14,8 @@ Each case takes the whole numpy inputs and cuts its own rank's part: the
 columns (rows) of its model index, the batch rows of its data index.
 """
 
+import contextlib
+import io
 import multiprocessing as mp
 import os
 import sys
@@ -248,6 +250,8 @@ def raises(mesh, A, E=4):
 
     mc = model_config_from_train(TrainConfig(embedding_size=E, hidden_state_size=E),
                                  DataConfig(num_items=A))
+    sarm = model_config_from_train(TrainConfig(model="sarm", embedding_size=E,
+                                               hidden_state_size=E), DataConfig(num_items=A))
     params = params_from_numpy(numpy_init_params(mc, 0), "cpu")
     _, opt = make_train_state(params, mc, 0.01, device="cpu")
     calls = {
@@ -255,7 +259,9 @@ def raises(mesh, A, E=4):
         "make_train_step": lambda: make_train_step(mc, opt, mesh=mesh, device="cpu"),
         "EvalProtocol": lambda: EvalProtocol(mc, mesh=mesh, device="cpu"),
         "Recommender": lambda: Recommender(params, mc, mesh=mesh, device="cpu"),
-        "lazy": lambda: make_train_step(mc, opt, lazy_embedding_lr=0.01, mesh=mesh, device="cpu"),
+        "lazy": lambda: make_train_step(sarm, opt, lazy_qhead_lr=0.01, mesh=mesh, device="cpu"),
+        "lazy_gru4rec": lambda: make_train_step(mc, opt, lazy_embedding_lr=0.01, mesh=mesh,
+                                                device="cpu"),
         "nccl_on_cpu": lambda: type(mesh)(mesh.spec, "nccl", mesh.device, mesh.rank,
                                           mesh.groups).all_reduce(torch.zeros(1)),
     }
@@ -376,3 +382,161 @@ def evaluate(mesh, A, align, train_kw, np_params, buf, batch_size, proto_kw):
     proto = EvalProtocol(mc, mesh=mesh, device="cpu", **proto_kw)
     res = proto.evaluate(shard_tree(np_params, mesh), EvalBuffer(**buf), batch_size)
     return {"fused": proto.fused, **vars(res)}
+
+
+# -- the trainer on a mesh -------------------------------------------------------
+
+
+def _recording_protocol(gap):
+    """The port's EvalProtocol, recording for each finalize (a train window
+    or an eval pass, in call order) (this rank's valid rows near a tie, its
+    valid rows), as tests/test_torch_trainer.py's ``_NearTies`` does."""
+    import torch
+
+    from ikea_recommender_tpu_torch.eval.protocol import EvalProtocol
+
+    class NearTies(EvalProtocol):
+        made = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.windows, self._near, self._n = [], 0, 0
+            NearTies.made.append(self)
+
+        def update(self, params, accum, state, action, true_len, valid, action_type=None):
+            rows = self._on_device(state), self._on_device(true_len), self._on_device(action)
+            vals = self.topk_ce(params, rows[0], rows[1], rows[2], k=self._max_k + 1)[0]
+            ok = torch.as_tensor(valid, dtype=torch.bool)
+            self._near += int((ok & ((vals[:, :-1] - vals[:, 1:]) <= gap).any(dim=1)).sum())
+            self._n += int(ok.sum())
+            return super().update(params, accum, state, action, true_len, valid, action_type)
+
+        def finalize(self, accum):
+            self.windows.append((self._near, self._n))
+            self._near = self._n = 0
+            return super().finalize(accum)
+
+    return NearTies
+
+
+def _state_leaves(state, full, mesh):
+    """{name: (this rank's leaf, split dim or None)} of a train state's
+    params and lazy row moments, ``full`` the gathered params of one net."""
+    from ikea_recommender_tpu_torch.convert import tree_leaves
+    from ikea_recommender_tpu_torch.parallel.sharding import _paths, state_shardings
+    from ikea_recommender_tpu_torch.train.state import LazyAdamState
+
+    dims = tree_leaves(state_shardings(full, mesh))
+    names = ["/".join(p) for p in _paths(full)]
+    nets = state.params if isinstance(state.params, tuple) else (state.params,)
+    opts = state.opt_state if isinstance(state.opt_state, tuple) else (state.opt_state,)
+    out = {}
+    for k, net in enumerate(nets):
+        for name, leaf, d in zip(names, tree_leaves(net), dims):
+            out[f"net{k}/{name}"] = (_np(leaf), d)
+    emb_dim = dims[names.index("backbone/embedding")]
+    for k, o in enumerate(opts):
+        if isinstance(o, LazyAdamState):
+            if o.emb is not None:
+                out[f"opt{k}/emb_mv"] = (_np(o.emb.mv), emb_dim)
+            if o.qh is not None:
+                out[f"opt{k}/qh_mv"] = (_np(o.qh.mv), None)
+    return out
+
+
+def trainer(mesh, cfg, bufs, init=None, coins=None, extra=None, gap=1e-4, cli_argv=None,
+            hook=None, deterministic=False):
+    """The port's ``run.trainer.train`` (or, with ``cli_argv``, its CLI) on
+    this rank of the mesh, the double-Q coins ``coins[step]`` given to the
+    step (``hook``: a function of this module called with each step's
+    local batch) -> this rank's outcome: logs, best point, test metrics,
+    the near ties of each finalize, its state's leaves with their split
+    dims, the bytes of the train rows it holds; rank 0 also the gathered
+    best params. ``deterministic``: under
+    ``torch.use_deterministic_algorithms`` (the CPU's ``index_put_`` sums
+    duplicates across threads in no fixed order otherwise)."""
+    import torch
+
+    from ikea_recommender_tpu_torch.run import checkpoints, cli
+    from ikea_recommender_tpu_torch.run import trainer as port_trainer
+
+    make, proto_cls = port_trainer.make_train_step, port_trainer.EvalProtocol
+    uploads = (port_trainer._device_train_data, port_trainer._device_train_data_process_sharded)
+    recording = _recording_protocol(gap)
+    recording.made = []
+    seen = {}
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def call(state, batch):
+            kw = {} if coins is None else {"coin": coins[state.step]}
+            if hook is not None:
+                globals()[hook](mesh, state, batch, seen)
+            return step(state, batch, **kw)
+
+        return call
+
+    def held(fn):
+        def upload(*args):
+            out = fn(*args)
+            data = out[0] if isinstance(out, tuple) else out
+            # the last upload is the rows the rank keeps
+            seen["train_bytes"] = sum(t.numel() * t.element_size() for t in data.values())
+            return out
+
+        return upload
+
+    port_trainer.make_train_step, port_trainer.EvalProtocol = wrapped, recording
+    port_trainer._device_train_data, port_trainer._device_train_data_process_sharded = map(
+        held, uploads)
+    torch.use_deterministic_algorithms(deterministic)
+    outcomes, printed = [], io.StringIO()
+    try:
+        torch.manual_seed(0)
+        with contextlib.redirect_stdout(printed):
+            out = _train_or_cli(port_trainer, cli, cfg, bufs, init, extra, cli_argv, outcomes,
+                                seen)
+    finally:
+        port_trainer.make_train_step, port_trainer.EvalProtocol = make, proto_cls
+        port_trainer._device_train_data, port_trainer._device_train_data_process_sharded = (
+            uploads)
+        torch.use_deterministic_algorithms(False)
+    flat = checkpoints.flatten_params(out.best_params)
+    return {
+        "logs": out.logs, "pretrain": out.pretrain_metrics, "test": out.test_metrics,
+        "best_metric": out.best_metric, "best_epoch": out.best_epoch,
+        "windows": recording.made[0].windows, "seen": seen,
+        "leaves": _state_leaves(out.state, out.best_params, mesh),
+        "best_params": flat if mesh.rank == 0 else None,
+        "throughput": out.throughput_sessions_per_sec, "printed": printed.getvalue(),
+    }
+
+
+def _train_or_cli(port_trainer, cli, cfg, bufs, init, extra, cli_argv, outcomes, seen):
+    if cli_argv is None:
+        return port_trainer.train(cfg, device="cpu", init_params=init, **bufs, **(extra or {}))
+    train = cli.train
+    cli.train = lambda *a, **k: outcomes.append(train(*a, **k)) or outcomes[-1]
+    try:
+        seen["rc"] = cli.main(cli_argv)
+    finally:
+        cli.train = train
+    return outcomes[0]
+
+
+def batch_rows(mesh, state, batch, seen):
+    """A trainer hook: each step's local batch rows (state and valid)."""
+    seen.setdefault("batches", []).append((_np(batch["state"]), _np(batch["valid"])))
+
+
+def raises_in_train(mesh, cfg, bufs):
+    """The error ``run.trainer.train`` raises on this rank, as a string
+    (None if it trained)."""
+    from ikea_recommender_tpu_torch.run import trainer as port_trainer
+
+    try:
+        port_trainer.train(cfg, device="cpu", **bufs)
+    except (RuntimeError, ValueError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None

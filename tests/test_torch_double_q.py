@@ -266,3 +266,45 @@ def test_double_q_inputs_are_checked():
         make_double_q_state(pair[:1], mc, LR, device="cpu")
     with pytest.raises(ValueError, match="two different seeds"):
         numpy_init_double_q(mc, (3, 3))
+
+
+@pytest.mark.parametrize("model", ["sqn", "smorl"])
+def test_named_steps_match_reference(model):
+    """``sqn_train_step`` and ``smorl_train_step`` (the reference's
+    signatures; smorl's takes the diversity embedding, the unpopular mask
+    and the id table) against the reference's functions called directly:
+    two steps with the reference's coins, the losses atol 1e-5 and every
+    param after them atol 1e-5, as the steps above are held."""
+    from ikea_recommender_tpu_torch.train.steps import smorl_train_step, sqn_train_step
+
+    mc, jmc = model_configs(A, embedding_size=E, hidden_state_size=E, state_size=T,
+                            model=model, fused_ce=True)
+    np_pair = numpy_init_double_q(mc, (3, 4))
+    batches = _batches(2, seed=12)
+    aux = _smorl_inputs(5, True) if model == "smorl" else {}
+    opt = jax_state.make_optimizer(LR)
+    params = tuple(as_jax_tree(p) for p in np_pair)
+    st = jax_state.DoubleQState(params=params, opt_state=tuple(opt.init(p) for p in params),
+                                step=jnp.zeros((), jnp.int32), rng=jax.random.key(1))
+    jaux = [jnp.asarray(aux[k]) for k in ("div_embedding", "unpopular_mask", "out_to_in")
+            if model == "smorl"]
+    state, popt = make_double_q_state([params_from_numpy(p, "cpu") for p in np_pair], mc, LR,
+                                      device="cpu")
+    rl = RLStepConfig()
+    for b in batches:
+        coin = int(jax.random.bernoulli(jax.random.fold_in(st.rng, st.step)))
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        tb = {k: torch.as_tensor(v) for k, v in b.items()}
+        if model == "sqn":
+            st, jm = jax_steps.sqn_train_step(st, jb, jmc, opt, jax_steps.RLStepConfig())
+            state, m = sqn_train_step(state, tb, mc, popt, rl, coin=coin)
+        else:
+            st, jm = jax_steps.smorl_train_step(st, jb, jmc, opt, jax_steps.RLStepConfig(),
+                                                *jaux)
+            state, m = smorl_train_step(state, tb, mc, popt, rl, aux["div_embedding"],
+                                        aux["unpopular_mask"], aux["out_to_in"], coin=coin)
+        np.testing.assert_allclose([float(m["sup_loss"]), float(m["q_loss"])],
+                                   [float(jm["sup_loss"]), float(jm["q_loss"])], atol=1e-5)
+    for net in (0, 1):
+        for got, want in zip(torch_leaves(state.params[net]), jax_leaves(st.params[net])):
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

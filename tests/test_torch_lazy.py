@@ -729,13 +729,13 @@ def test_lazy_steps_check_their_inputs():
                         lazy_qhead_lr=LR)
     with pytest.raises(ValueError, match="Q family"):
         make_train_step(gru, opt, device="cpu", lazy_qhead_lr=LR)
-    with pytest.raises(NotImplementedError, match=r"A\.9"):
-        make_train_step(mc, opt, device="cpu", lazy_qhead_lr=LR, mesh=object())
-    st, _ = make_lazy_sarm_state(params_from_numpy(numpy_init_params(
-        model_configs(A, embedding_size=E, hidden_state_size=E, state_size=T,
-                      model="sarm")[0], 0), "cpu"),
-        model_configs(A, embedding_size=E, hidden_state_size=E, state_size=T,
-                      model="sarm")[0], LR, lazy_qh=True, device="cpu")
+    sarm, _ = model_configs(A, embedding_size=E, hidden_state_size=E, state_size=T,
+                            model="sarm")
+    # the reference's rule: sqn and smorl take the lazy arms on a mesh, sarm not
+    with pytest.raises(ValueError, match=r"mesh \+ lazy is not supported for sarm"):
+        make_train_step(sarm, opt, device="cpu", lazy_qhead_lr=LR, mesh=object())
+    st, _ = make_lazy_sarm_state(params_from_numpy(numpy_init_params(sarm, 0), "cpu"), sarm,
+                                 LR, lazy_qh=True, device="cpu")
     assert isinstance(st, TrainState) and set(st.params["q_heads"]) == {
         "kernel0", "bias0", "kernel_am", "bias_rest"}
     assert tuple(st.opt_state.qh.mv.shape) == (A, 4 * 2 * (E + 1))

@@ -304,24 +304,29 @@ def test_sharded_embedding_lookup_matches_reference(pools, spec, data_axis):
 def test_what_the_mesh_cannot_take_raises(pools):
     """An action dim the model axis does not divide raises where the
     reference's sharded ops raise (``not divisible``), in every entry point
-    that takes a mesh; the lazy optimizers on a mesh name their item; nccl
-    refuses CPU tensors."""
+    that takes a mesh, the lazy steps' too; sarm's lazy step on a mesh
+    raises as the reference's does; nccl refuses CPU tensors."""
     with pytest.raises(ValueError, match="not divisible"):
         jax_pce.sharded_fused_softmax_ce(jnp.zeros((2, 4)), jnp.zeros((4, 66)),
                                          jnp.zeros((66,)), jnp.zeros((2,), jnp.int32),
                                          _jmesh((1, 4)), 66)
     got = _run(pools, W.raises, (1, 4), A=66)
     for r in got:
-        for name in ("shard_width", "make_train_step", "EvalProtocol", "Recommender"):
+        for name in ("shard_width", "make_train_step", "EvalProtocol", "Recommender",
+                     "lazy_gru4rec"):
             assert r[name] is not None and "not divisible by model axis 4" in r[name], name
-        assert r["lazy"].startswith("NotImplementedError") and "A.9b" in r["lazy"]
+        assert r["lazy"] == "ValueError: mesh + lazy is not supported for sarm"
         assert r["nccl_on_cpu"].startswith("ValueError") and "CUDA" in r["nccl_on_cpu"]
 
 
-def test_shard_and_gather_follow_the_reference_rules(pools):
+@pytest.mark.parametrize("layout", ["canonical", "lazy"])
+def test_shard_and_gather_follow_the_reference_rules(pools, layout):
     """Each leaf splits where the reference's ``state_shardings`` puts the
     model axis (embedding rows, head columns; a leaf the axis does not
-    divide stays whole), and the gathered slices are the tree, bit for bit."""
+    divide stays whole; in the lazy action-major layout the whole Q head,
+    its bias too, stays whole), and the gathered slices are the tree, bit
+    for bit."""
+    from ikea_recommender_tpu.train import state as jax_state
     from ikea_recommender_tpu_torch.core.config import DataConfig, TrainConfig
     from ikea_recommender_tpu_torch.models.families import model_config_from_train
 
@@ -329,9 +334,11 @@ def test_shard_and_gather_follow_the_reference_rules(pools):
     # 70 items: 71 embedding rows (odd, stays whole); 70 actions (2 divides)
     mc = model_config_from_train(TrainConfig(model="smorl", embedding_size=4,
                                              hidden_state_size=4), DataConfig(num_items=70))
-    pair = numpy_init_double_q(mc)
-    want = jax_sharding.state_shardings(tuple(jax.tree.map(jnp.asarray, p) for p in pair),
-                                        _jmesh(spec))
+    pair = tuple(jax.tree.map(jnp.asarray, p) for p in numpy_init_double_q(mc))
+    if layout == "lazy":
+        pair = tuple(jax_state.lazy_qhead_params(p, "smorl") for p in pair)
+    want = jax_sharding.state_shardings(pair, _jmesh(spec))
+    pair = tuple(jax.tree.map(np.asarray, p) for p in pair)
     want_dims = [None if "model" not in s.spec else list(s.spec).index("model")
                  for s in jax.tree.leaves(want, is_leaf=lambda x: hasattr(x, "spec"))]
     got = _run(pools, W.shard_roundtrip, spec, tree=pair)
@@ -342,6 +349,7 @@ def test_shard_and_gather_follow_the_reference_rules(pools):
         assert r["dims"] == want_dims
         for a, w in zip(r["back"], full):
             np.testing.assert_array_equal(a, w)
-    assert sum(d is not None for d in want_dims) == 8  # 2 nets x sup/q kernel and bias
+    # 2 nets x sup (and, canonical, q) kernel and bias
+    assert sum(d is not None for d in want_dims) == (8 if layout == "canonical" else 4)
     half = [s for s, d in zip(got[1]["shapes"], want_dims) if d is not None]
     assert all(s[-1] == 35 for s in half)

@@ -274,10 +274,13 @@ def test_train_state_holds_params_to_the_config():
 def test_lazy_and_mesh_name_their_slice():
     """A lazy Q-head Adam on a family without Q heads raises as the
     reference's does. A mesh is taken: on a (1, 1) gloo mesh in this
-    process the step is the plain step, bit for bit; the lazy optimizers on
-    a mesh name their slice (A.9b). tests/test_torch_mesh.py holds the
-    steps on (1, 2) and (2, 2) meshes to the reference's."""
+    process the step is the plain step, bit for bit, and so is the lazy
+    embedding step; sarm's lazy step on a mesh raises, as the reference's
+    does. tests/test_torch_mesh.py and tests/test_torch_trainer_mesh*.py
+    hold the steps and the trainer on (1, 2) and (2, 2) meshes to the
+    reference's."""
     from ikea_recommender_tpu_torch.core.mesh import single_device_mesh
+    from ikea_recommender_tpu_torch.train.state import make_lazy_train_state
 
     mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="gru4rec",
                      fused_ce=True)
@@ -286,14 +289,18 @@ def test_lazy_and_mesh_name_their_slice():
     with pytest.raises(ValueError, match="needs a Q family"):
         make_train_step(mc, opt, lazy_qhead_lr=0.01, device="cpu")
     mesh = single_device_mesh("gloo", "cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.9b"):
-        make_train_step(mc, opt, lazy_embedding_lr=0.01, mesh=mesh, device="cpu")
+    sarm, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="sarm",
+                       fused_ce=True)
+    with pytest.raises(ValueError, match=r"mesh \+ lazy is not supported for sarm"):
+        make_train_step(sarm, opt, lazy_embedding_lr=0.01, mesh=mesh, device="cpu")
     batch = _batches(1, B, A_SMALL, T, seed=6)[0]
-    runs = []
-    for kw in ({}, {"mesh": mesh, "data_axis": "data"}):
-        state, opt = make_train_state(params_from_numpy(np_params, "cpu"), mc, LR, device="cpu")
-        state, m = make_train_step(mc, opt, device="cpu", **kw)(state, batch)
-        runs.append((float(m["sup_loss"]), _torch_leaves(state.params)))
-    assert runs[0][0] == runs[1][0]
-    for a, w in zip(runs[0][1], runs[1][1]):
-        np.testing.assert_array_equal(a, w)
+    for make, lazy in ((make_train_state, {}), (make_lazy_train_state,
+                                                {"lazy_embedding_lr": LR})):
+        runs = []
+        for kw in ({}, {"mesh": mesh, "data_axis": "data"}):
+            state, opt = make(params_from_numpy(np_params, "cpu"), mc, LR, device="cpu")
+            state, m = make_train_step(mc, opt, device="cpu", **lazy, **kw)(state, batch)
+            runs.append((float(m["sup_loss"]), _torch_leaves(state.params)))
+        assert runs[0][0] == runs[1][0]
+        for a, w in zip(runs[0][1], runs[1][1]):
+            np.testing.assert_array_equal(a, w)

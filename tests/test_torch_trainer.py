@@ -510,11 +510,18 @@ def test_guards(tmp_path, monkeypatch, capsys, case):
             with pytest.raises(ValueError, match=what):
                 port_trainer.train(cfg, device="cpu", **bufs)
     elif case in ("parallel", "sharded_ce", "process_sharded"):
+        # a mesh needs its ranks' process group (tests/test_torch_trainer_mesh*.py
+        # train on one); sharded_ce and process_sharded need a mesh, as the
+        # reference's checks say
         cfg = _guard_cfg(tmp_path)
         setattr(cfg.parallel, *{"parallel": ("data", 2), "sharded_ce": ("sharded_ce", True),
                                 "process_sharded": ("process_sharded", True)}[case])
-        with pytest.raises(NotImplementedError, match=r"A\.9"):
-            port_trainer.train(cfg, device="cpu", **bufs)
+        if case == "parallel":
+            with pytest.raises(RuntimeError, match=r"torchrun.*--backend"):
+                port_trainer.train(cfg, device="cpu", **bufs)
+        else:
+            with pytest.raises(ValueError, match=f"{case} requires a multi-device mesh"):
+                port_trainer.train(cfg, device="cpu", **bufs)
     elif case == "div_embedding_files":
         emb = np.random.RandomState(9).randn(A + 1, 4).astype(np.float32)
         np.save(tmp_path / "e.npy", emb)
