@@ -201,6 +201,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    per step plus B3 per eval batch; "[mesh-trainer]" lines give ms per
    step per rank, sessions/s, collectives per step per axis and the
    phase's seconds, none of them a multi-GPU speed.
+13. RetailRocket (ROADMAP A.9c, A.10's first step): the protocol without
+   pandas (``run/retailrocket.py``) at r5b's invocation
+   (``experiments/RetailRocket-Comparison/rehearsal_r5b/command_{synth,
+   etl,buffers}.json``: 260000 sessions, 135000 items, seed 0, state_len
+   10): synth, etl and buffers, each step's host seconds, the splits'
+   rows, sessions and buys; the catalog must be 72293 (``RESULTS.md:152``).
+   Then ``run --family gru4rec --epochs 1 --no-train-metrics`` on the card
+   at the paper point (batch 256, lr 0.01, E = H = 64; ~1.72M train rows),
+   its launches ``PER_STEP`` per step plus B3 per eval batch, its logs
+   finite, sessions/s and the test HR@10 and NDCG@10 printed; on that
+   model the analysis (``analysis/``): ``find_hits`` over the test buffer
+   (its hit share must be the test HR@10), ``predict_and_describe`` on 3
+   hits (each true action in its top-10), ``render_predictions_html``,
+   ``sample_trajectories``, ``nearest_neighbors`` on the exported
+   embedding held to the same function on the CPU, a served top-1 the
+   head's argmax, B3 once per ``recommend`` call and no other kernel;
+   then ``parallel/scaling_bench.py::run_scaling_bench`` for smorl at the
+   bench width (catalog 70852, E = H = 64, 256 rows a rank) on (1, 1),
+   (2, 1) and (1, 2), two ranks spawned on the card over gloo (phase 11's
+   machinery): equal points on both ranks, ``PER_STEP`` per step on each,
+   ``shared_card`` on every point of more than one rank. At the end
+   neither jax, the reference package nor pandas may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
@@ -3108,6 +3130,8 @@ def mesh_rank_main(rank, world, spec, backend, store, jobs, conn):
                 out[job] = (scores, res) if rank == 0 else None
             elif job == "trainer":
                 out[f"trainer {arg['name']}"] = mesh_trainer_job(mesh, arg)
+            elif job == "scaling":
+                out[job] = scaling_job(arg)
             elif job == "nccl":
                 mesh.reset_counts()
                 x = torch.ones(3, device=MESH_DEVICE)
@@ -3794,6 +3818,217 @@ def phase_mesh_trainer(smi):
     return paths
 
 
+RR_INVOCATION = "experiments/RetailRocket-Comparison/rehearsal_r5b"
+RR_CATALOG = 72293  # RESULTS.md:152, the r5b invocation's catalog after the ETL
+RR_SCALING_SPECS = ((1, 1), (2, 1), (1, 2))
+RR_SCALING_STEPS = (3, 20)  # warm-up, timed
+
+
+def scaling_job(arg):
+    """``parallel/scaling_bench.py::run_scaling_bench`` on this rank (phase
+    13): smorl at the bench width over ``RR_SCALING_SPECS``, its points as
+    dicts, and this rank's launches and steps."""
+    import dataclasses
+
+    from ikea_recommender_tpu_torch.core.mesh import MeshSpec
+    from ikea_recommender_tpu_torch.parallel.scaling_bench import run_scaling_bench
+
+    reset_counters()
+    warmup, iters = RR_SCALING_STEPS
+    pts = run_scaling_bench(model="smorl", mesh_specs=[MeshSpec(*s) for s in RR_SCALING_SPECS],
+                            warmup=warmup, iters=iters, backend="gloo", device=MESH_DEVICE)
+    torch.cuda.synchronize()
+    rank = torch.distributed.get_rank()
+    points = sum(rank < s[0] * s[1] for s in RR_SCALING_SPECS)
+    return {"points": [dataclasses.asdict(p) for p in pts], "launches": counters(),
+            "steps": points * (warmup + iters)}
+
+
+def rr_argv(tmp):
+    """The r5b invocation's synth, etl and buffers argv
+    (``RR_INVOCATION/command_<cmd>.json``) with paths under ``tmp``."""
+    rec = {cmd: json.load(open(os.path.join(RR_INVOCATION, f"command_{cmd}.json")))
+           for cmd in ("synth", "etl", "buffers")}
+    s, e, b = rec["synth"], rec["etl"], rec["buffers"]
+    events, data, bufs = f"{tmp}/events.csv", f"{tmp}/data", f"{tmp}/buffers"
+    return bufs, {
+        "synth": ["synth", "--out", events, "--num-sessions", str(s["num_sessions"]),
+                  "--num-items", str(s["num_items"]), "--seed", str(s["seed"])],
+        "etl": ["etl", "--events", events, "--out", data, "--click-events", *e["click_events"],
+                "--buy-events", *e["buy_events"], "--min-item-count", str(e["min_item_count"]),
+                "--min-session-len", str(e["min_session_len"]),
+                "--sample-sessions", str(e["sample_sessions"]), "--seed", str(e["seed"])],
+        "buffers": ["buffers", "--data", data, "--out", bufs, "--state-len", str(b["state_len"]),
+                    "--pad-pos", b["pad_pos"], "--unpopular-quantile",
+                    str(b["unpopular_quantile"])],
+    }
+
+
+def phase_retailrocket(smi):
+    """The RetailRocket protocol without pandas (``run/retailrocket.py``)
+    at the r5b invocation, gru4rec trained on it one epoch on the card, the
+    analysis functions on that model and the shared-card scaling points.
+    Returns each path's launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from ikea_recommender_tpu_torch.analysis import embeddings, trajectories, visualize
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, num_batches
+    from ikea_recommender_tpu_torch.models.families import model_config_from_train
+    from ikea_recommender_tpu_torch.run import retailrocket as rr
+    from ikea_recommender_tpu_torch.run.checkpoints import load_params_npz
+    from ikea_recommender_tpu_torch.run.serve import Recommender
+
+    t_phase = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rr_") as tmp:
+        bufs, argv = rr_argv(tmp)
+        secs = {}
+        for cmd in ("synth", "etl", "buffers"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                rr.main(argv[cmd])
+            secs[cmd] = time.perf_counter() - t0
+            for line in said.getvalue().splitlines():
+                print(f"[retailrocket] {line.replace(tmp, '<tmp>')}")
+        meta = json.load(open(os.path.join(tmp, "data", "item_map.json")))
+        if meta["num_items"] != RR_CATALOG:
+            fail(f"retailrocket: the r5b invocation gave catalog {meta['num_items']}, "
+                 f"not {RR_CATALOG}")
+        splits = {s: rr.load_split(os.path.join(tmp, "data", f"sampled_{s}.npz"))
+                  for s in ("train", "val", "test")}
+        sizes = {s: {"rows": len(c["item_id"]), "sessions": len(np.unique(c["session_id"])),
+                     "buys": int(c["is_buy"].sum())} for s, c in splits.items()}
+        print(f"[retailrocket] r5b invocation ({RR_INVOCATION}/command_*.json): catalog "
+              f"{meta['num_items']} (= {RR_CATALOG}); splits {json.dumps(sizes)}; host s "
+              f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+
+        # gru4rec one epoch at the paper point, train metrics off
+        val_buf = EvalBuffer(os.path.join(bufs, "val_buffer.npz"))
+        test_buf = EvalBuffer(os.path.join(bufs, "test_buffer.npz"))
+        n_b = num_batches(len(np.load(os.path.join(bufs, "replay_buffer.npz"))["action"]), 256)
+        n_val, n_test = num_batches(len(val_buf), 2000), num_batches(len(test_buf), 2000)
+        out = f"{tmp}/runs/gru4rec_run"
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            outcome = rr.main(["run", "--buffers", bufs, "--family", "gru4rec", "--epochs", "1",
+                               "--no-train-metrics", "--out", out])
+        torch.cuda.synchronize()
+        launches = counters()
+        run_s = time.perf_counter() - t0
+        want = trainer_launches("gru4rec", outcome, n_b, n_val, n_test, train_metrics=False)
+        if launches != want:
+            fail(f"retailrocket run gru4rec launched {launches}, expected {want}")
+        check_logs("retailrocket gru4rec", outcome)
+        summary = json.load(open(os.path.join(out, "run_summary.json")))
+        tm = summary["test_metrics"]
+        hr, ndcg = tm["Test_HR@10"], tm["Test_NDCG@10"]
+        paths["retailrocket gru4rec"] = launches
+        print(f"[retailrocket] run gru4rec 1 epoch (--no-train-metrics; batch 256, lr 0.01, "
+              f"E=H=64, catalog {RR_CATALOG}): {n_b} steps, "
+              f"{summary['train_sessions_per_sec']:.0f} sessions/s of the train loop, test "
+              f"HR@10 {hr:.6f} NDCG@10 {ndcg:.6f}, best {summary['best_metric']:.6f}; "
+              f"{run_s:.1f} s; launches {json.dumps(launches)}; {smi}")
+
+        # the analysis functions on that model
+        cfg = rr.run_config(rr.get_parser().parse_args(
+            ["run", "--buffers", bufs, "--family", "gru4rec", "--out", out]), None)
+        mc = model_config_from_train(cfg.train, cfg.data)
+        rec = Recommender(load_params_npz(os.path.join(out, "best_model.npz"), device="cuda"), mc,
+                          device="cuda")
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counters()
+        hits = visualize.find_hits(rec, test_buf, k=10)
+        records = trajectories.predict_and_describe(
+            rec, test_buf, hits[:3], k=10,
+            lookup_fn=lambda ids: {int(i): {"name": f"item {i}"} for i in ids})
+        html_path = visualize.render_predictions_html(records, f"{tmp}/preds.html")
+        starts = test_buf.action[hits[:4]].tolist()
+        trajs = trajectories.sample_trajectories(rec, starts, steps=5, state_len=10,
+                                                 pad_id=RR_CATALOG, rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        launches = counters()
+        n_calls = num_batches(len(test_buf), 1024) + 1 + len(starts) * 5
+        if launches != {name: n_calls * (name == "B3 gru_fwd") for name in launches}:
+            fail(f"the analysis' {n_calls} recommend calls launched {launches}")
+        paths["analysis"] = launches
+        if abs(len(hits) / len(test_buf) - hr) > 0.01:
+            fail(f"find_hits' hit share {len(hits) / len(test_buf):.6f} is not the test HR@10 "
+                 f"{hr:.6f}")
+        if not all(r["true_action"] in [p["item"] for p in r["predictions"]] for r in records):
+            fail("predict_and_describe: a hit row's true action is not in its top-10")
+        if "row " not in open(html_path).read() or len(records) != 3:
+            fail("render_predictions_html wrote no record")
+        if not all(len(t) == 6 and all(0 <= x < RR_CATALOG for x in t) for t in trajs):
+            fail(f"sample_trajectories gave {trajs}")
+        emb = np.load(os.path.join(out, "embedding_weights.npy"))
+        queries = np.unique(test_buf.action)[:16]
+        ids, sims = embeddings.nearest_neighbors(emb, queries, k=10, device="cuda")
+        ids_ref, sims_ref = embeddings.nearest_neighbors(emb, queries, k=11, device="cpu")
+        check_topk(torch.as_tensor(sims), torch.as_tensor(ids), torch.as_tensor(sims_ref),
+                   torch.as_tensor(ids_ref), 10, ref="the CPU's nearest_neighbors")
+        if (ids == queries[:, None]).any():
+            fail("nearest_neighbors returned a query as its own neighbour")
+        states, lens = test_buf.state[:512], test_buf.true_len[:512]
+        top1 = rec.recommend(states, lens, k=1)[1][:, 0]
+        scores = rec.scores(states, lens)
+        gap = (scores.max(dim=1).values - scores.gather(1, top1[:, None])[:, 0]).max().item()
+        if not (torch.isfinite(scores).all() and gap <= GAP):
+            fail(f"the trained model's served top-1 is not its head's argmax ({gap:.3g})")
+        print(f"[retailrocket] analysis on the trained gru4rec: find_hits {len(hits)} of "
+              f"{len(test_buf)} test rows ({len(hits) / len(test_buf):.6f}; HR@10 {hr:.6f}), "
+              f"predict_and_describe on 3 hits, render_predictions_html, sample_trajectories "
+              f"{trajs[0]}, nearest_neighbors of {len(queries)} items on the exported "
+              f"{emb.shape} embedding (held to the CPU's); served top-1 the head's argmax "
+              f"(gap {gap:.3g}); {time.perf_counter() - t0:.1f} s; launches "
+              f"{json.dumps(launches)}")
+
+    # the scaling bench's (1, 1) point in this process, no other rank on the card
+    from ikea_recommender_tpu_torch.core.mesh import MeshSpec
+    from ikea_recommender_tpu_torch.parallel.scaling_bench import run_scaling_bench
+
+    warmup, iters = RR_SCALING_STEPS
+    torch.cuda.synchronize()
+    reset_counters()
+    (alone,) = run_scaling_bench(model="smorl", mesh_specs=[MeshSpec(1, 1)], warmup=warmup,
+                                 iters=iters, backend="gloo", device="cuda")
+    torch.cuda.synchronize()
+    launches = counters()
+    check_launches("smorl", launches, warmup + iters)
+    paths["scaling smorl, one process"] = launches
+    print(f"[retailrocket] scaling smorl (1, 1) in this process: {1000 / alone.steps_per_sec:.3f} "
+          f"ms a step, {alone.sessions_per_sec:.1f} sessions/s; {smi}")
+
+    # the scaling bench on ranks that share the card
+    t0 = time.perf_counter()
+    ranks = mesh_spawn((2, 1), "gloo", [("scaling", None)])
+    got = [r["scaling"] for r in ranks]
+    if any(r["points"] != got[0]["points"] for r in got[1:]):
+        fail("scaling bench: the ranks' points differ")
+    for r, res in enumerate(got):
+        want = {name: PER_STEP["smorl"].get(name, 0) * res["steps"] for name in res["launches"]}
+        if res["launches"] != want:
+            fail(f"scaling bench rank {r}: {res['steps']} smorl steps launched "
+                 f"{res['launches']}, expected {want}")
+    paths["scaling smorl"] = {name: sum(r["launches"][name] for r in got)
+                              for name in got[0]["launches"]}
+    for p in got[0]["points"]:
+        if not (p["sessions_per_sec"] > 0 and p["cards"] == 1
+                and p["shared_card"] == (p["mesh"]["data"] * p["mesh"]["model"] > 1)):
+            fail(f"scaling bench point {p}")
+        print(f"[retailrocket] scaling smorl (catalog 70852, E=H=64, 256 rows a rank) "
+              f"{json.dumps(p)}; {smi}")
+    print(f"[retailrocket] scaling bench {time.perf_counter() - t0:.1f} s; a point with "
+          f"shared_card true is ranks time-slicing one card over gloo, not a scaling "
+          f"efficiency")
+    print(f"[retailrocket] phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 class SimpleOutcome:
     """The parts of a ``TrainOutcome`` that ``trainer_launches`` and
     ``check_logs`` read."""
@@ -3832,9 +4067,11 @@ def main():
     paths.update(phase_trainer(smi, profile=profile))
     paths.update(phase_mesh(smi))
     paths.update(phase_mesh_trainer(smi))
-    # the card's machine has jax installed: show the port never loaded it
+    paths.update(phase_retailrocket(smi))
+    # the card's machine has jax installed: show the port never loaded it,
+    # nor pandas (the RetailRocket protocol runs without it)
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "ikea_recommender_tpu", "pandas"))
     if loaded:
         fail(f"the port loaded {loaded[:5]}")
     meta = {

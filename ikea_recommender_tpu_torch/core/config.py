@@ -245,3 +245,17 @@ def load_experiment_config(yaml_path: str) -> Config:
         raw = yaml.safe_load(fh) or {}
     exp_dir = os.path.dirname(os.path.abspath(yaml_path))
     return config_from_dict(raw, exp_dir=exp_dir)
+
+
+def save_experiment_config(cfg: Config, yaml_path: str) -> None:
+    """Write ``cfg``'s five sections (experiment, data, train, metrics,
+    parallel) with every field, as the reference's
+    ``save_experiment_config`` does; :func:`load_experiment_config` reads
+    the file back to an equal ``Config`` whose ``exp_dir`` is the file's
+    directory."""
+    import yaml
+
+    raw = {name: dataclasses.asdict(getattr(cfg, name))
+           for name in ("experiment", "data", "train", "metrics", "parallel")}
+    with open(yaml_path, "w") as fh:
+        yaml.safe_dump(raw, fh, sort_keys=False)

@@ -33,7 +33,7 @@ over the axis (the partial cotangents of the shards that read it).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -153,13 +153,16 @@ def pvary(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
 
 
 def make_mesh(spec: Optional[MeshSpec] = None, backend: Optional[str] = None,
-              device="cuda") -> Mesh:
+              device="cuda", ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """This rank's mesh over the initialized process group
-    (``core/distributed.py::initialize``), whose size must be
-    ``spec.num_devices``; all ranks call it in the same order. With no
-    spec, every rank goes on the data axis. ``backend`` (default: the
-    process group's) names the collectives' backend; ``device`` is this
-    rank's device (raises without CUDA unless ``device="cpu"``).
+    (``core/distributed.py::initialize``); all ranks of the group call it
+    in the same order. ``ranks`` (default: every rank of the group) are the
+    group's ranks the mesh spans, in mesh order, and must number
+    ``spec.num_devices``; a rank outside them gets None, and a rank inside
+    takes its position in ``ranks`` as its mesh rank. With no spec, every
+    rank goes on the data axis. ``backend`` (default: the process group's)
+    names the collectives' backend; ``device`` is this rank's device
+    (raises without CUDA unless ``device="cpu"``).
 
     The groups are made with ``dist.new_group`` per axis rather than
     ``init_device_mesh``, which maps rank r to the card ``r % count``
@@ -169,9 +172,13 @@ def make_mesh(spec: Optional[MeshSpec] = None, backend: Optional[str] = None,
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(core/distributed.py::initialize)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    spec = MeshSpec(data=world, model=1) if spec is None else spec
-    if spec.num_devices != world:
-        raise ValueError(f"mesh {spec} needs {spec.num_devices} ranks, the process group has {world}")
+    members = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    spec = MeshSpec(data=len(members), model=1) if spec is None else spec
+    if spec.num_devices != len(members):
+        have = f"the process group has {world}" if ranks is None else f"got ranks {members}"
+        raise ValueError(f"mesh {spec} needs {spec.num_devices} ranks, {have}")
+    if len(set(members)) != len(members) or not all(0 <= r < world for r in members):
+        raise ValueError(f"ranks {members} are not distinct ranks of a group of {world}")
     backend = backend or str(dist.get_backend())
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -179,22 +186,24 @@ def make_mesh(spec: Optional[MeshSpec] = None, backend: Optional[str] = None,
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"the nccl backend runs on CUDA devices, got {dev}")
     D, M = spec.data, spec.model
+    pos = members.index(rank) if rank in members else None
     groups: Dict[str, Optional[dist.ProcessGroup]] = {DATA_AXIS: None, MODEL_AXIS: None}
     # every rank creates every group, in one order (new_group is collective)
     for d in range(D):
-        g = dist.new_group([d * M + m for m in range(M)], backend=backend)
-        if rank // M == d:
+        g = dist.new_group([members[d * M + m] for m in range(M)], backend=backend)
+        if pos is not None and pos // M == d:
             groups[MODEL_AXIS] = g
     for m in range(M):
-        g = dist.new_group([d * M + m for d in range(D)], backend=backend)
-        if rank % M == m:
+        g = dist.new_group([members[d * M + m] for d in range(D)], backend=backend)
+        if pos is not None and pos % M == m:
             groups[DATA_AXIS] = g
-    return Mesh(spec, backend, dev, rank, groups)
+    return None if pos is None else Mesh(spec, backend, dev, pos, groups)
 
 
 def single_device_mesh(backend: str = "nccl", device="cuda") -> Mesh:
     """A (1, 1) mesh; starts a process group of one rank (an in-memory
-    store) when none is running."""
+    store) when none is running. That group lives on in the process until
+    the caller that started it calls ``dist.destroy_process_group()``."""
     if not dist.is_initialized():
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return make_mesh(MeshSpec(1, 1), backend, device)

@@ -32,9 +32,10 @@ laid out again on the card.
 ``row_logit`` and ``multihead_row_logit`` are plain differentiable torch: a
 column gather, a dot and the bias gather; autograd's scatter-add forms dW
 and db (accumulating where a batch repeats an action). The reference's
-``take_cols_sorted`` and ``_onehot_colgrad`` are not ported: they only worked
-around slow minor-axis gathers and scatters on the TPU, as their docstrings
-say.
+``_onehot_colgrad`` is not ported: it only worked around slow minor-axis
+scatters on the TPU, as its docstring says. Its ``take_cols_sorted`` is, as
+:func:`take_cols_sorted`, a helper that replaces no kernel: ``row_logit``
+gathers its columns directly.
 """
 
 from __future__ import annotations
@@ -277,3 +278,14 @@ def multihead_row_logit(
     (K, F, A) and b (K, A); differentiable in h, w and b."""
     idx = idx.long()
     return torch.einsum("bf,kfb->bk", h, w[:, :, idx]) + b[:, idx].T
+
+
+def take_cols_sorted(w: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.index_select(w, dim, idx)`` as the reference's
+    ``take_cols_sorted``: the ids sorted, the gather, then the inverse
+    permutation of the result. Exact: a permutation gather composed with
+    its inverse."""
+    idx = torch.as_tensor(idx, device=w.device).long()
+    order = torch.argsort(idx)
+    inv = torch.argsort(order)
+    return torch.index_select(torch.index_select(w, dim, idx[order]), dim, inv)

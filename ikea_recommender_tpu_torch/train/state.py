@@ -188,6 +188,11 @@ def make_double_q_state(
     return DoubleQState(pair, opt_state, 0, torch.Generator().manual_seed(seed)), opt
 
 
+def select_net(params: Any, idx: int) -> Any:
+    """Network ``idx`` of a double-Q (net0, net1) pair."""
+    return params[idx]
+
+
 # ---------------------------------------------------------------------------
 # Lazy optimizers (train/lazy_adam.py)
 # ---------------------------------------------------------------------------

@@ -1108,6 +1108,27 @@ def make_train_step(
     )
 
 
+# the dtypes of the batch columns every step takes, as the trainer feeds them
+_BATCH_DTYPES = {
+    "state": torch.int32,
+    "action": torch.int32,
+    "reward": torch.float32,
+    "next_state": torch.int32,
+    "true_len": torch.int32,
+    "true_next_len": torch.int32,
+    "is_end": torch.bool,
+    "valid": torch.bool,
+}
+
+
+def batch_to_device_dict(batch, device="cuda") -> Dict[str, torch.Tensor]:
+    """``data.replay_buffer.Batch`` -> the dict of tensors on ``device``
+    (raises without CUDA unless ``device="cpu"``) that the steps take."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(getattr(batch, k)).to(device=dev, dtype=dt)
+            for k, dt in _BATCH_DTYPES.items()}
+
+
 def _check_mesh(model_cfg: ModelConfig, mesh, data_axis, dev: torch.device, lazy: LazyCfg):
     """Raises for a step the mesh cannot take."""
     if lazy.on and model_cfg.family == "sarm":

@@ -540,3 +540,17 @@ def raises_in_train(mesh, cfg, bufs):
     except (RuntimeError, ValueError) as e:
         return f"{type(e).__name__}: {e}"
     return None
+
+
+def scaling_bench(mesh, specs, **kw):
+    """``parallel/scaling_bench.py::run_scaling_bench`` on every rank of the
+    pool, each point's mesh on the pool's first ranks (the pool's own mesh
+    is not used); its points as dicts."""
+    import dataclasses
+
+    from ikea_recommender_tpu_torch.core.mesh import MeshSpec
+    from ikea_recommender_tpu_torch.parallel.scaling_bench import run_scaling_bench
+
+    pts = run_scaling_bench(mesh_specs=[MeshSpec(*s) for s in specs], backend="gloo",
+                            device="cpu", **kw)
+    return [dataclasses.asdict(p) for p in pts]

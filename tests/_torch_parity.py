@@ -18,6 +18,24 @@ ATOL = 1e-5
 
 
 @pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) gloo mesh on the CPU in the pytest process
+    (``core/mesh.py::single_device_mesh``). The one-rank process group it
+    starts is destroyed after the test, so a later test in this process
+    (an xdist worker runs several files) finds no group."""
+    import torch.distributed as dist
+
+    from ikea_recommender_tpu_torch.core.mesh import single_device_mesh
+
+    started = not dist.is_initialized()
+    try:
+        yield single_device_mesh("gloo", "cpu")
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.fixture
 def cuda_device():
     """The card, for tests marked ``cuda``; skips where there is none."""
     if not torch.cuda.is_available():

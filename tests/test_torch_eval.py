@@ -30,7 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import as_jax_tree, model_configs
+from _torch_parity import as_jax_tree, model_configs, one_rank_mesh  # noqa: F401
 
 from ikea_recommender_tpu.data import item_frequency as jax_item_frequency
 from ikea_recommender_tpu.data import preprocessing as jax_preprocessing
@@ -415,17 +415,15 @@ def test_default_div_embedding_gives_zero_diversity():
     assert got.div_rew == want.div_rew == 0.0
 
 
-def test_protocol_refuses_a_mesh_and_the_cpu_unless_asked(monkeypatch):
+def test_protocol_refuses_a_mesh_and_the_cpu_unless_asked(monkeypatch, one_rank_mesh):
     """A mesh is taken: on a (1, 1) gloo mesh in this process a pass equals
     the pass without one (tests/test_torch_mesh.py holds (1, 2) and (2, 2)
     meshes to the reference's protocol). The CPU only when asked."""
-    from ikea_recommender_tpu_torch.core.mesh import single_device_mesh
-
     mc, jmc, np_params, _, buf, kw = _protocol_case("gru4rec", None, 0, 300, ())
     params = params_from_numpy(np_params, "cpu")
     results = [EvalProtocol(mc, device="cpu", mesh=mesh, **kw).evaluate(
         params, replay_buffer.EvalBuffer(**buf), BATCH)
-        for mesh in (None, single_device_mesh("gloo", "cpu"))]
+        for mesh in (None, one_rank_mesh)]
     _assert_results_match(results[1], results[0])
     assert results[1].loss == results[0].loss
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -2,8 +2,13 @@
 silent move to the CPU.
 
 - every ``.py`` file of ``ikea_recommender_tpu_torch/`` and ``chip_smoke.py``
-  is scanned for imports of jax, jaxlib, flax, optax or ikea_recommender_tpu;
-- importing every port module in a fresh interpreter loads no ``jax``;
+  is scanned for imports of jax, jaxlib, flax, optax or ikea_recommender_tpu,
+  and the modules that replace pandas code (the analysis, the scaling bench,
+  the RetailRocket protocol) for pandas too;
+- importing every port module in a fresh interpreter loads no ``jax`` and
+  no ``pandas``; importing a subpackage imports none of its modules (no
+  kernel builds), and each exports the reference's names but those without
+  a counterpart;
 - the entry points raise without CUDA unless the caller asks for the CPU;
 - ``chip_smoke.py`` fails, and prints no result, without a card.
 """
@@ -23,6 +28,14 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "ikea_recommender_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ikea_recommender_tpu"}
+# modules that run without pandas where the reference's need it
+PANDAS_FREE = ("analysis/__init__.py", "analysis/embeddings.py", "analysis/trajectories.py",
+               "analysis/visualize.py", "parallel/scaling_bench.py", "run/retailrocket.py")
+SUBPACKAGES = ("core", "data", "models", "ops", "train", "eval", "run", "utils", "analysis",
+               "parallel")
+# the reference's exports that have no counterpart in the port
+NO_COUNTERPART = {"models": {"init_backbone", "init_model"},
+                  "parallel": {"batch_sharding_tree"}}
 
 
 def _port_files():
@@ -42,6 +55,11 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_imports(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
+
+
+@pytest.mark.parametrize("path", PANDAS_FREE)
+def test_pandas_free_modules(path):
+    assert "pandas" not in _imported_roots(PORT / path), path
 
 
 def test_git_ignores_no_port_source():
@@ -66,13 +84,15 @@ def test_importing_the_port_loads_no_jax():
                 "data.preprocessing", "data.replay_buffer", "eval.protocol",
                 "utils.logging_dicts", "core.mesh", "core.distributed", "parallel.topk",
                 "parallel.fused_ce", "parallel.q_kernels", "parallel.sharding",
-                "parallel.__init__"):
+                "parallel.__init__", "parallel.scaling_bench", "analysis.__init__",
+                "analysis.embeddings", "analysis.trajectories", "analysis.visualize",
+                "run.retailrocket", "_exports"):
         assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{sorted(FORBIDDEN)!r})\n"
+        f"{sorted(FORBIDDEN | {'pandas'})!r})\n"
         "print(bad)\n"
     )
     out = subprocess.run(
@@ -80,6 +100,32 @@ def test_importing_the_port_loads_no_jax():
         timeout=120, check=True,
     )
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_subpackages_export_the_references_names():
+    """Each subpackage's ``__all__`` is the reference's but for the names
+    without a counterpart, and every name resolves. Importing the lazily
+    exporting subpackages in a fresh interpreter imports none of their
+    modules, so no kernel is built."""
+    import importlib
+
+    for sub in SUBPACKAGES:
+        ref = importlib.import_module(f"ikea_recommender_tpu.{sub}").__all__
+        port = importlib.import_module(f"ikea_recommender_tpu_torch.{sub}")
+        assert port.__all__ == [n for n in ref if n not in NO_COUNTERPART.get(sub, ())], sub
+        for name in port.__all__:
+            assert getattr(port, name) is not None
+    lazy = SUBPACKAGES[:8]
+    code = (
+        "import importlib, sys\n"
+        f"for s in {list(lazy)!r}: importlib.import_module('ikea_recommender_tpu_torch.' + s)\n"
+        "print(sorted(m for m in sys.modules if m.startswith('ikea_recommender_tpu_torch.')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.replace("'", '"'))
+    assert loaded == sorted(["ikea_recommender_tpu_torch._exports"]
+                            + [f"ikea_recommender_tpu_torch.{s}" for s in lazy]), loaded
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
@@ -155,6 +201,35 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
                       true_next_len=np.ones(2, np.int32), is_end=np.zeros(2, bool))
         _, metrics = make_train_step(mq, opt, device="cpu", **aux)(dq, qbatch)
         assert metrics["q_loss"].device.type == "cpu"
+
+    # A.9c: the analysis, the scaling bench, the RetailRocket run, the batch dict
+    from ikea_recommender_tpu_torch.analysis import embeddings
+    from ikea_recommender_tpu_torch.data.replay_buffer import Batch
+    from ikea_recommender_tpu_torch.parallel.scaling_bench import run_scaling_bench
+    from ikea_recommender_tpu_torch.run import retailrocket
+    from ikea_recommender_tpu_torch.train.steps import batch_to_device_dict
+
+    emb = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        embeddings.cosine_similarity_matrix(emb)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        embeddings.nearest_neighbors(emb, [0], k=1)
+    assert embeddings.cosine_similarity_matrix(emb, device="cpu").device.type == "cpu"
+    assert embeddings.nearest_neighbors(emb, [0], k=1, device="cpu")[0].shape == (1, 1)
+    tiny = dict(model="gru4rec", per_device_batch=2, catalog=9, state_len=3, emb=4, hidden=4,
+                warmup=0, iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scaling_bench(**tiny)
+    assert len(run_scaling_bench(**tiny, device="cpu")) == 1
+    argv = ["run", "--buffers", str(tmp_path / "none"), "--out", str(tmp_path / "rr")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        retailrocket.main(argv)
+    with pytest.raises(FileNotFoundError):  # on the CPU it gets as far as the buffers
+        retailrocket.main(argv + ["--device", "cpu"])
+    rows = Batch(**qbatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_to_device_dict(rows)
+    assert batch_to_device_dict(rows, device="cpu")["state"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

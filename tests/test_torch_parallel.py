@@ -353,3 +353,28 @@ def test_shard_and_gather_follow_the_reference_rules(pools, layout):
     assert sum(d is not None for d in want_dims) == (8 if layout == "canonical" else 4)
     half = [s for s, d in zip(got[1]["shapes"], want_dims) if d is not None]
     assert all(s[-1] == 35 for s in half)
+
+
+@pytest.mark.parametrize("model,pool,specs", [
+    ("gru4rec", 4, [(1, 1), (2, 1), (2, 2)]),  # tests/test_serve_analysis.py's case
+    ("smorl", 2, [(1, 1), (2, 1), (1, 2)]),  # chip_smoke.py's points
+])
+def test_scaling_bench_smoke(pools, model, pool, specs):
+    """``run_scaling_bench`` at tests/test_serve_analysis.py's tiny width on
+    a pool's gloo ranks: every rank gets the same points, one a spec, with
+    the reference's meshes and global batches (its bench on the virtual
+    devices); the first point's efficiency is 1, and on the CPU no card is
+    used or shared."""
+    from ikea_recommender_tpu.parallel.scaling_bench import run_scaling_bench as jax_bench
+
+    kw = dict(model=model, per_device_batch=8, catalog=32, state_len=4, emb=8, hidden=8,
+              warmup=1, iters=3)
+    ranks = _run(pools, W.scaling_bench, (pool, 1), specs=specs, **kw)
+    pts = ranks[0]
+    assert all(r == pts for r in ranks[1:])
+    want = jax_bench(mesh_specs=[MeshSpec(*s) for s in specs], **kw)
+    assert [(p["mesh"], p["global_batch"]) for p in pts] == [
+        (dict(w.mesh), w.global_batch) for w in want]
+    assert pts[0]["efficiency"] == 1.0
+    assert all(p["sessions_per_sec"] > 0 and p["steps_per_sec"] > 0 for p in pts)
+    assert all(p["cards"] == 0 and not p["shared_card"] for p in pts)

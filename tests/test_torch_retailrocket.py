@@ -1,0 +1,218 @@
+"""The port's RetailRocket protocol (``run/retailrocket.py``, numpy only)
+against ``scripts/retailrocket.py`` (pandas) at small invocations.
+
+``synth``'s events.csv byte for byte; ``etl``'s ``sampled_*.npz`` column
+for column (values and dtypes) against the script's pickled DataFrames and
+``item_map.json`` byte for byte; ``buffers``' three buffers' arrays bit for
+bit, ``unpopular_items.json`` and ``meta.json`` byte for byte; a case whose
+filters need more than one pass to their fixpoint and one with
+``--sample-sessions``; the three steps with pandas unimportable; ``run`` on
+the CPU (the gru4rec leg exports its embedding, the smorl leg finds it) and
+its refusal of smorl without one, as the script refuses.
+"""
+
+import importlib.util
+import json
+import os
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from ikea_recommender_tpu_torch.run import retailrocket as port_rr
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "retailrocket_script", os.path.join(REPO, "scripts", "retailrocket.py"))
+script_rr = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(script_rr)
+
+SPLITS = ("train", "val", "test")
+BUFFERS = ("replay_buffer", "val_buffer", "test_buffer")
+# the keys of the script's run_summary.json (scripts/retailrocket.py:330-341)
+SUMMARY_KEYS = {"family", "epochs", "best_metric", "best_epoch", "test_metrics",
+                "train_sessions_per_sec", "timing", "div_emb", "preset", "logs"}
+
+
+def _script(argv):
+    """``scripts/retailrocket.py``'s subcommand for ``argv``."""
+    old = sys.argv
+    sys.argv = ["retailrocket.py", *argv]
+    try:
+        script_rr.main()
+    finally:
+        sys.argv = old
+
+
+def _protocol(run, root, synth=(), etl=(), buffers=()):
+    """synth -> etl -> buffers under ``root`` through ``run``(argv)."""
+    events, data, bufs = (os.path.join(root, n) for n in ("events.csv", "data", "buffers"))
+    run(["synth", "--out", events, *synth])
+    run(["etl", "--events", events, "--out", data, *etl])
+    run(["buffers", "--data", data, "--out", bufs, *buffers])
+    return events, data, bufs
+
+
+def _assert_same_protocol(script_dirs, port_dirs):
+    (s_events, s_data, s_bufs), (p_events, p_data, p_bufs) = script_dirs, port_dirs
+    with open(s_events, "rb") as a, open(p_events, "rb") as b:
+        assert a.read() == b.read()
+    for split in SPLITS:
+        want = pd.read_pickle(os.path.join(s_data, f"sampled_{split}.df"))
+        got = port_rr.load_split(os.path.join(p_data, f"sampled_{split}.npz"))
+        assert list(want.columns) == list(got)
+        for col in want.columns:
+            assert got[col].dtype == want[col].to_numpy().dtype, (split, col)
+            np.testing.assert_array_equal(got[col], want[col].to_numpy())
+    for names, a_dir, b_dir in ((("item_map.json",), s_data, p_data),
+                                (("unpopular_items.json", "meta.json"), s_bufs, p_bufs)):
+        for name in names:
+            with open(os.path.join(a_dir, name)) as a, open(os.path.join(b_dir, name)) as b:
+                assert a.read() == b.read(), name
+    for name in BUFFERS:
+        with np.load(os.path.join(s_bufs, f"{name}.npz")) as a, \
+                np.load(os.path.join(p_bufs, f"{name}.npz")) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype, (name, k)
+                np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.fixture(scope="module")
+def protocol(tmp_path_factory):
+    root = tmp_path_factory.mktemp("rr")
+    args = dict(synth=("--num-sessions", "300", "--num-items", "200", "--seed", "0"))
+    script_dirs = _protocol(_script, str(root / "script"), **args)
+    port_dirs = _protocol(port_rr.main, str(root / "port"), **args)
+    return root, script_dirs, port_dirs
+
+
+def test_protocol_matches_the_script(protocol):
+    _, script_dirs, port_dirs = protocol
+    _assert_same_protocol(script_dirs, port_dirs)
+    # each invocation is recorded with the script's keys
+    for cmd, s_dir, p_dir in zip(("synth", "etl", "buffers"), script_dirs, port_dirs):
+        if cmd == "synth":  # its --out is the events file
+            s_dir, p_dir = os.path.dirname(s_dir), os.path.dirname(p_dir)
+        want, got = (json.load(open(os.path.join(d, f"command_{cmd}.json")))
+                     for d in (s_dir, p_dir))
+        assert got["cmd"] == cmd and set(got) == set(want)
+
+
+@pytest.mark.parametrize("argv", [
+    ("--seed", "3", "--num-sessions", "250", "--num-items", "120"),
+    (),  # the defaults: 400 sessions, 300 items
+])
+def test_synth_csv_byte_for_byte(tmp_path, argv):
+    _script(["synth", "--out", str(tmp_path / "a.csv"), *argv])
+    port_rr.main(["synth", "--out", str(tmp_path / "b.csv"), *argv])
+    assert (tmp_path / "a.csv").read_bytes() == (tmp_path / "b.csv").read_bytes()
+
+
+# numpy 2.0's default_rng(0).zipf(1.3, size=405000): the bytes' sha256 and
+# the next random() (r5b's synth draws with numpy 2.0; later releases draw
+# other values, so the port keeps 2.0's algorithm)
+ZIPF_20 = ("463b2c5821b6a93a5e5ab11f4bd327b9362b5683ab0d3b59166f1e6bcef86382",
+           0.8476108673398473)
+
+
+def test_zipf_is_numpy20s():
+    import hashlib
+
+    rng = np.random.default_rng(0)
+    got = port_rr.zipf_numpy20(rng, 1.3, 405000)
+    assert got.dtype == np.int64 and len(got) == 405000
+    assert (hashlib.sha256(got.tobytes()).hexdigest(), rng.random()) == ZIPF_20
+    for seed, a, n in ((1, 1.3, 1000), (2, 2.5, 777)):
+        ours, theirs = np.random.default_rng(seed), np.random.default_rng(seed)
+        want = theirs.zipf(a, size=n)
+        if np.__version__.startswith("2.0."):  # numpy's own zipf is 2.0's
+            np.testing.assert_array_equal(port_rr.zipf_numpy20(ours, a, n), want)
+            assert ours.random() == theirs.random()
+
+
+def _one_pass(events, min_item_count, min_session_len):
+    """The etl's filters applied once to the kept events (numpy)."""
+    ev = port_rr.read_events(events)
+    keep = np.isin(ev["event"], ["view", "transaction", "addtocart"])
+    item, vis = ev["itemid"][keep], ev["visitorid"][keep]
+    ids, counts = np.unique(item, return_counts=True)
+    ok = np.isin(item, ids[counts >= min_item_count])
+    item, vis = item[ok], vis[ok]
+    _, inv, sizes = np.unique(vis, return_inverse=True, return_counts=True)
+    ok = sizes[inv] >= min_session_len
+    return item[ok], vis[ok]
+
+
+def test_fixpoint_needs_more_than_one_pass(tmp_path):
+    """Filters whose first pass leaves items under the count (sessions cut
+    short take their items' counts down): the fixpoint iterates, as the
+    script's."""
+    synth = ("--num-sessions", "200", "--num-items", "150", "--seed", "1")
+    etl = ("--min-item-count", "6", "--min-session-len", "5")
+    script_dirs = _protocol(_script, str(tmp_path / "script"), synth=synth, etl=etl)
+    port_dirs = _protocol(port_rr.main, str(tmp_path / "port"), synth=synth, etl=etl)
+    item, _ = _one_pass(port_dirs[0], 6, 5)
+    _, counts = np.unique(item, return_counts=True)
+    assert (counts < 6).any()  # one pass is not the fixpoint
+    _assert_same_protocol(script_dirs, port_dirs)
+    full = np.concatenate([port_rr.load_split(os.path.join(port_dirs[1], f"sampled_{s}.npz"))
+                           ["item_id"] for s in SPLITS])
+    assert np.unique(full, return_counts=True)[1].min() >= 6
+
+
+def test_sample_sessions(tmp_path):
+    synth = ("--num-sessions", "300", "--num-items", "200", "--seed", "2")
+    etl = ("--sample-sessions", "90", "--seed", "4")
+    script_dirs = _protocol(_script, str(tmp_path / "script"), synth=synth, etl=etl)
+    port_dirs = _protocol(port_rr.main, str(tmp_path / "port"), synth=synth, etl=etl)
+    _assert_same_protocol(script_dirs, port_dirs)
+    sessions = np.concatenate([port_rr.load_split(os.path.join(
+        port_dirs[1], f"sampled_{s}.npz"))["session_id"] for s in SPLITS])
+    assert len(np.unique(sessions)) == 90
+
+
+def test_protocol_without_pandas(protocol, tmp_path, monkeypatch):
+    root, script_dirs, _ = protocol
+    monkeypatch.setitem(sys.modules, "pandas", None)
+    with pytest.raises(ImportError):
+        import pandas  # noqa: F401
+    port_dirs = _protocol(port_rr.main, str(tmp_path),
+                          synth=("--num-sessions", "300", "--num-items", "200", "--seed", "0"))
+    monkeypatch.undo()
+    _assert_same_protocol(script_dirs, port_dirs)
+
+
+def test_run_trains_the_chain_on_the_cpu(protocol, capsys):
+    """gru4rec at the paper point for one epoch on the CPU exports its
+    embedding; smorl finds it beside its --out and trains with a non-zero
+    diversity reward. run_summary.json has the script's keys."""
+    root, _, (_, _, bufs) = protocol
+    runs = root / "runs"
+    for family in ("gru4rec", "smorl"):
+        out = str(runs / f"{family}_run")
+        port_rr.main(["run", "--buffers", bufs, "--family", family, "--epochs", "1",
+                      "--no-train-metrics", "--out", out, "--device", "cpu"])
+        summary = json.load(open(os.path.join(out, "run_summary.json")))
+        assert set(summary) == SUMMARY_KEYS
+        assert summary["family"] == family and summary["epochs"] == 1
+        metrics = json.load(open(os.path.join(out, "test_metrics.json")))
+        assert metrics == summary["test_metrics"] and any("NDCG@10" in k for k in metrics)
+        assert all(np.isfinite(v) for v in metrics.values())
+        assert json.load(open(os.path.join(out, "command_run.json")))["device"] == "cpu"
+    assert os.path.exists(runs / "gru4rec_run" / "embedding_weights.npy")
+    assert summary["div_emb"] == str(runs / "gru4rec_run" / "embedding_weights.npy")
+    assert "auto-discovered diversity embedding" in capsys.readouterr().out
+    div = [v for k, v in summary["test_metrics"].items() if "Div_Reward" in k]
+    assert div and any(v != 0.0 for v in div)
+
+
+def test_smorl_without_pretrained_embeddings_refuses(protocol, tmp_path):
+    _, _, (_, _, bufs) = protocol
+    argv = ["run", "--buffers", bufs, "--family", "smorl", "--epochs", "1",
+            "--out", str(tmp_path / "isolated" / "smorl_run")]
+    with pytest.raises(SystemExit, match="diversity embedding"):
+        port_rr.main([*argv, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="diversity embedding"):
+        _script(argv)

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import as_jax_tree
+from _torch_parity import as_jax_tree, one_rank_mesh  # noqa: F401
 from _torch_parity import jax_leaves as _leaves
 from _torch_parity import model_configs as _configs
 from _torch_parity import torch_leaves as _torch_leaves
@@ -271,7 +271,7 @@ def test_train_state_holds_params_to_the_config():
         make_train_state(params, mc, LR, device="cpu")
 
 
-def test_lazy_and_mesh_name_their_slice():
+def test_lazy_and_mesh_name_their_slice(one_rank_mesh):
     """A lazy Q-head Adam on a family without Q heads raises as the
     reference's does. A mesh is taken: on a (1, 1) gloo mesh in this
     process the step is the plain step, bit for bit, and so is the lazy
@@ -279,7 +279,6 @@ def test_lazy_and_mesh_name_their_slice():
     does. tests/test_torch_mesh.py and tests/test_torch_trainer_mesh*.py
     hold the steps and the trainer on (1, 2) and (2, 2) meshes to the
     reference's."""
-    from ikea_recommender_tpu_torch.core.mesh import single_device_mesh
     from ikea_recommender_tpu_torch.train.state import make_lazy_train_state
 
     mc, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="gru4rec",
@@ -288,7 +287,7 @@ def test_lazy_and_mesh_name_their_slice():
     _, opt = make_train_state(params_from_numpy(np_params, "cpu"), mc, LR, device="cpu")
     with pytest.raises(ValueError, match="needs a Q family"):
         make_train_step(mc, opt, lazy_qhead_lr=0.01, device="cpu")
-    mesh = single_device_mesh("gloo", "cpu")
+    mesh = one_rank_mesh
     sarm, _ = _configs(A_SMALL, embedding_size=8, hidden_state_size=8, model="sarm",
                        fused_ce=True)
     with pytest.raises(ValueError, match=r"mesh \+ lazy is not supported for sarm"):
