@@ -221,8 +221,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    bench width (catalog 70852, E = H = 64, 256 rows a rank) on (1, 1),
    (2, 1) and (1, 2), two ranks spawned on the card over gloo (phase 11's
    machinery): equal points on both ranks, ``PER_STEP`` per step on each,
-   ``shared_card`` on every point of more than one rank. At the end
-   neither jax, the reference package nor pandas may be loaded.
+   ``shared_card`` on every point of more than one rank.
+14. IKEA (ROADMAP A.12): the IKEA flavor without pandas
+   (``run/ikea_rehearsal.py``) at the script's defaults (300000 sessions,
+   100000 products, 10000 inspiration images, seed 0; state_len 10,
+   3-step returns, unpopular quantile 0.4): synth and buffers on the host,
+   which must give 2550083 events, 786870 clicks, 755402 / 15709 / 15759
+   windows, an input vocabulary of 110000 and an output one of 10000, the
+   tokenizer and meta files and each buffer's arrays with the digests the
+   script's output has (``IKEA_FILE_DIGESTS``, ``IKEA_BUFFER_DIGESTS``),
+   and 4000 unpopular ids none more frequent than an id left out; then
+   ``run --family gru4rec --epochs 1`` (lr 0.0005, 2951 steps, train
+   metrics on) and ``run --family smorl --epochs 1 --lr 0.01`` on the
+   gru4rec leg's (110001, 64) embedding, at the IKEA-final point (batch
+   256, val batch 5000, E = H = 64, 10000 output columns: the fused CE on),
+   each run's launches ``PER_STEP`` per step plus B3 per eval batch, its
+   logs finite, its head (64, 10000) and embedding (110001, 64), its
+   run_summary.json the script's keys, its test HR@12 above
+   ``IKEA_HR_FLOOR``, smorl's test Div_Reward nonzero; "[ikea]" lines give
+   the host seconds, sessions/s and the test HR/NDCG@{1, 6, 12}, Div and
+   Nov rewards. At the end neither jax, the reference package nor pandas
+   may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
@@ -233,6 +252,7 @@ and the yardstick's time; the last line is
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -513,6 +533,7 @@ def kernels_gru_fwd():
         (256, 50, 256, False, False),  # wide: W_h from L2, unmasked
         (2000, 10, 64, True, False),  # the eval point: 500 blocks, ~3.8 waves
         (2000, 10, 128, True, True),  # bidir's eval point, both directions
+        (5000, 10, 64, True, False),  # the IKEA eval point: 1250 blocks of 4 rows
     ]:
         xw, wh, bh, mask = gru_case(B, T, H, masked)
         y, h = gru_scan(xw, wh, bh, mask, reverse=reverse)
@@ -714,6 +735,7 @@ def kernels_fused_ce():
         (256, 256, 70852, 70852, "highest"),
         (256, 256, 70912, 70852, "high"),
         (256, 200, 70852, 70852, "high"),  # F not a multiple of 128: slices of 128 and 72
+        (256, 64, 10000, 10000, "high"),  # the IKEA point: 10000 output columns
     ]:
         g = torch.Generator(device="cuda").manual_seed(A)
         h = torch.randn(B, Fd, device="cuda", generator=g)
@@ -795,6 +817,9 @@ def kernels_fused_ce():
             if lib_call is not None:
                 row["library_call_ms"] = lib_call
             print(f"[kernels] {name} {json.dumps(row)}")
+            if A == IKEA_ACTIONS:
+                rows[f"{name} ikea"] = row
+                continue
             rows.setdefault({64: name, 256: f"{name} bidir"}.get(Fd, f"{name} F={Fd}"), row)
             if Fd == 64 and A == valid and precision != "high":
                 rows.setdefault(f"{name} {precision}", row)
@@ -844,6 +869,8 @@ ARGMAX_CASES = [
     (256, 64, 70912, 70852, 3, "high", True),
     (1, 64, 70852, 70852, None, "high", False),  # one row
     (1, 64, 70852, 70852, 3, "high", False),
+    (256, 64, 10000, 10000, 3, "high", False),  # the IKEA smorl point
+    (256, 64, 10000, 10000, 3, "high", True),
 ]
 ARGMAX_AM_CASES = [
     (256, 64, 70852, 70852, None, "default", False),  # the sqn fast point
@@ -870,12 +897,16 @@ def kernels_fused_argmax():
     wherever the twin's top two values differ by more (the rest counted);
     on the integer cases the ids equal everywhere, ties to the lowest id.
     Returns the train points' rows (sqn's B5, smorl's B6 at K = 3: "high",
-    "highest", and the action-major forms as "<name> am" in "default")."""
+    "highest", and the action-major forms as "<name> am" in "default"; B6
+    at the IKEA point as "<name> ikea")."""
     rows = {}
     for am, cases in ((False, ARGMAX_CASES), (True, ARGMAX_AM_CASES)):
         for case in cases:
             name, row = argmax_row(*case, am)
             key = f"{name} am" if am else name
+            if case[2] == IKEA_ACTIONS:
+                rows.setdefault(f"{key} ikea", row)
+                continue
             rows.setdefault(key, row)
             if case[:4] == (256, 64, 70852, 70852) and case[5] == "highest":
                 rows.setdefault(f"{key} highest", row)
@@ -970,6 +1001,7 @@ def phase_kernels():
     b3, b4, bf = kernels_gru_fwd(), kernels_gru_bwd(), kernels_gru_bf16()
     rows = {"B3 gru_fwd": b3[(256, 10, 64)], "B3 serving": b3[(512, 10, 64)],
             "B3 eval": b3[(2000, 10, 64)], "B3 eval bidir": b3[(2000, 10, 128)],
+            "B3 gru_fwd ikea eval": b3[(5000, 10, 64)],
             "B3 gru_fwd bidir": b3[(256, 10, 128)], "B4 gru_bwd": b4[(256, 10, 64)],
             "B4 gru_bwd bidir": b4[(256, 10, 128)],
             "B3 gru_fwd bf16": bf[("fwd", 256, 10, 64, False)],
@@ -4029,6 +4061,158 @@ def phase_retailrocket(smi):
     return paths
 
 
+# The IKEA rehearsal at the script's defaults (scripts/ikea_rehearsal.py), and
+# what its synth and buffers give there (the script's output, numpy 2.0.2):
+# the sha256 of the files, and of each buffer's arrays in sorted key order
+# (name, str(dtype), C-order bytes of each, one digest a buffer).
+IKEA_ACTIONS = 10000
+IKEA_COUNTS = {"events": 2550083, "insp_clicks": 786870}
+IKEA_META = {"num_items": 110000, "num_actions": IKEA_ACTIONS, "padding_id": 110000,
+             "state_len": 10, "future_steps": 3,
+             "windows": {"train": 755402, "val": 15709, "test": 15759}}
+IKEA_FILE_DIGESTS = {
+    "input_tokenizer.json": "bc8c5dfaa1c93860448f1ca709b2b3a9aef81f13b2ae2c5bf268360e1e79da3d",
+    "output_tokenizer.json": "7171063d5de2dc75117edc1184a4234eeac9e363fa93d4e9e9185588f9af94de",
+    "meta.json": "31b5476ddaf67993404eb89b1ba5a8b39efea0c667a50d769f2cc544dc17cb6c",
+}
+IKEA_BUFFER_DIGESTS = {
+    "replay_buffer.npz": "094b2be7f543eddefbc3b6f6454462fc880599ba12e5d0da2d4b0523be8dd91b",
+    "val_buffer.npz": "d940d01f6e32119c804350ff875bdfbd3b1d27df15114b3fc4ea8ea2ec560ed0",
+    "test_buffer.npz": "0ca3752485f6a518c2b40c50552b6e9716ba86cdd84cc81e7c198211ebdbb178",
+}
+IKEA_LEGS = (("gru4rec", "0.0005"), ("smorl", "0.01"))  # the script's docstring's rates
+IKEA_HR_FLOOR = 0.012  # 10x chance (12 of 10000) for the test HR@12
+# the keys of the script's run_summary.json (scripts/ikea_rehearsal.py:270-285)
+IKEA_SUMMARY_KEYS = {"family", "epochs", "best_metric", "best_epoch", "test_metrics",
+                     "train_sessions_per_sec", "timing", "div_emb", "preset", "logs"}
+
+
+def npz_digest(path):
+    """sha256 over an ``.npz``'s arrays in sorted key order: each one's
+    name, ``str(dtype)`` and C-order bytes."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    with np.load(path) as data:
+        for key in sorted(data.files):
+            arr = np.ascontiguousarray(data[key])
+            digest.update(key.encode())
+            digest.update(str(arr.dtype).encode())
+            digest.update(arr.tobytes())
+    return digest.hexdigest()
+
+
+def ikea_data(tmp):
+    """synth and buffers at the script's defaults under ``tmp``, held to
+    the script's counts and digests; returns (buffers dir, host seconds)."""
+    import hashlib
+
+    from ikea_recommender_tpu_torch.run import ikea_rehearsal as ir
+
+    data, bufs = f"{tmp}/data", f"{tmp}/buffers"
+    secs = {}
+    for cmd, argv in (("synth", ["synth", "--out", data]),
+                      ("buffers", ["buffers", "--data", data, "--out", bufs])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            ir.main(argv)
+        secs[cmd] = time.perf_counter() - t0
+        for line in said.getvalue().splitlines():
+            print(f"[ikea] {line}")
+    synth_meta = json.load(open(os.path.join(data, "synth_meta.json")))
+    meta = json.load(open(os.path.join(bufs, "meta.json")))
+    digests = {name: hashlib.sha256(open(os.path.join(bufs, name), "rb").read()).hexdigest()
+               for name in IKEA_FILE_DIGESTS}
+    digests.update({name: npz_digest(os.path.join(bufs, name)) for name in IKEA_BUFFER_DIGESTS})
+    print(f"[ikea] digests {json.dumps(digests)}")
+    if {k: synth_meta[k] for k in IKEA_COUNTS} != IKEA_COUNTS:
+        fail(f"ikea synth gave {synth_meta}, not {IKEA_COUNTS}")
+    if meta != IKEA_META:
+        fail(f"ikea buffers gave {meta}, not {IKEA_META}")
+    wrong = [n for n, d in digests.items() if d != {**IKEA_FILE_DIGESTS, **IKEA_BUFFER_DIGESTS}[n]]
+    if wrong:
+        fail(f"ikea buffers: {wrong} differ from the script's output")
+    # the unpopular ids: the bottom 40% by train frequency (ties in any order)
+    unpop = json.load(open(os.path.join(bufs, "unpopular_items.json")))
+    with np.load(os.path.join(bufs, "replay_buffer.npz")) as buf:
+        freq = np.bincount(buf["action"], minlength=IKEA_ACTIONS)
+    chosen = np.zeros(IKEA_ACTIONS, bool)
+    chosen[unpop] = True
+    n_unpop = int(IKEA_ACTIONS * 0.4)
+    if len(unpop) != n_unpop or chosen.sum() != n_unpop or freq[chosen].max() > freq[~chosen].min():
+        fail(f"ikea unpopular_items.json: {len(unpop)} ids, the most frequent chosen "
+             f"{freq[chosen].max()} against the least frequent left out {freq[~chosen].min()}")
+    return bufs, secs
+
+
+def phase_ikea(smi):
+    """The IKEA flavor without pandas (``run/ikea_rehearsal.py``): synth and
+    buffers at the script's defaults, then gru4rec and smorl one epoch each
+    through ``run`` on the card. Returns each leg's launches."""
+    import tempfile
+
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, num_batches
+    from ikea_recommender_tpu_torch.run import ikea_rehearsal as ir
+    from ikea_recommender_tpu_torch.run.checkpoints import flatten_params
+
+    t_phase = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ikea_") as tmp:
+        bufs, secs = ikea_data(tmp)
+        print(f"[ikea] synth and buffers at the script's defaults: {IKEA_COUNTS['events']} "
+              f"events, {IKEA_COUNTS['insp_clicks']} clicks, windows "
+              f"{json.dumps(IKEA_META['windows'])}, vocabularies {IKEA_META['num_items']} in "
+              f"and {IKEA_ACTIONS} out, digests equal to the script's; host s "
+              f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+        n_b = num_batches(IKEA_META["windows"]["train"], 256)
+        n_val, n_test = (num_batches(len(EvalBuffer(os.path.join(bufs, f"{s}_buffer.npz"))), 5000)
+                         for s in ("val", "test"))
+        for family, lr in IKEA_LEGS:
+            out = f"{tmp}/runs/{family}_run"
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            reset_counters()
+            with contextlib.redirect_stdout(io.StringIO()):
+                outcome = ir.main(["run", "--buffers", bufs, "--family", family, "--epochs", "1",
+                                   "--lr", lr, "--out", out])
+            torch.cuda.synchronize()
+            launches = counters()
+            run_s = time.perf_counter() - t0
+            want = trainer_launches(family, outcome, n_b, n_val, n_test)
+            if launches != want:
+                fail(f"ikea run {family} launched {launches}, expected {want}")
+            check_logs(f"ikea {family}", outcome)
+            paths[f"ikea {family}"] = launches
+            summary = json.load(open(os.path.join(out, "run_summary.json")))
+            if set(summary) != IKEA_SUMMARY_KEYS:
+                fail(f"ikea {family} run_summary.json keys {sorted(summary)}")
+            params = flatten_params(outcome.best_params)
+            shapes = (params["sup_head/kernel"].shape, params["backbone/embedding"].shape)
+            if shapes != ((64, IKEA_ACTIONS), (IKEA_META["num_items"] + 1, 64)):
+                fail(f"ikea {family}: head and embedding {shapes}")
+            tm = summary["test_metrics"]
+            if not tm["Test_HR@12"] > IKEA_HR_FLOOR:
+                fail(f"ikea {family}: test HR@12 {tm['Test_HR@12']} <= {IKEA_HR_FLOOR}")
+            rewards = {k: v for k, v in tm.items() if "Div_Reward" in k or "Nov_Reward" in k}
+            if family == "smorl":
+                emb = np.load(summary["div_emb"], mmap_mode="r").shape
+                if emb != shapes[1] or "gru4rec_run" not in summary["div_emb"]:
+                    fail(f"ikea smorl read the embedding {summary['div_emb']} {emb}")
+                if not any(v != 0 for k, v in rewards.items() if "Div_Reward" in k):
+                    fail(f"ikea smorl: test Div_Reward is zero {rewards}")
+            ranks = {f"{m}@{k}": round(tm[f"Test_{m}@{k}"], 6) for m in ("HR", "NDCG")
+                     for k in (1, 6, 12)}
+            print(f"[ikea] run {family} 1 epoch (lr {lr}, batch 256, val batch 5000, E=H=64, "
+                  f"{IKEA_ACTIONS} output columns, train metrics on): {n_b} steps, "
+                  f"{summary['train_sessions_per_sec']:.0f} sessions/s of the train loop, "
+                  f"test {json.dumps(ranks)}, rewards "
+                  f"{json.dumps({k: round(v, 6) for k, v in rewards.items()})}, best "
+                  f"{summary['best_metric']:.6f} @ eval point {summary['best_epoch']}; "
+                  f"{run_s:.1f} s; launches {json.dumps(launches)}; {smi}")
+    print(f"[ikea] phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 class SimpleOutcome:
     """The parts of a ``TrainOutcome`` that ``trainer_launches`` and
     ``check_logs`` read."""
@@ -4068,6 +4252,7 @@ def main():
     paths.update(phase_mesh(smi))
     paths.update(phase_mesh_trainer(smi))
     paths.update(phase_retailrocket(smi))
+    paths.update(phase_ikea(smi))
     # the card's machine has jax installed: show the port never loaded it,
     # nor pandas (the RetailRocket protocol runs without it)
     loaded = sorted(m for m in sys.modules
@@ -4138,10 +4323,12 @@ def main():
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         # the bidir_gru4rec point's figures; the action-major form's at the
         # fast points ("default"; its launches "am_launches"); the fast
-        # preset's "default" and the reference preset's "highest"
+        # preset's "default" and the reference preset's "highest"; the IKEA
+        # train point's (A = 10000) and B3's at the IKEA eval batch (5000)
         for tag, key in (("bidir", f"{name} bidir"), ("am", f"{name} am"),
                          ("default", f"{name} default"), ("highest", f"{name} highest"),
-                         ("am_highest", f"{name} am highest")):
+                         ("am_highest", f"{name} am highest"), ("ikea", f"{name} ikea"),
+                         ("ikea_eval", f"{name} ikea eval")):
             if key in rows:
                 entry.update({f"{tag}_{k}": rows[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -22,8 +22,8 @@ parity with ``recommenders/ikea/data_utils/preprocessing.py``:
                                 derive true lengths by pad counting
                                 (:294-487).
 
-All group-wise steps are vectorized (groupby-transform / shifts), not
-per-group ``apply`` loops. pandas is imported inside the functions that
+Steps 5-7 are frame wrappers of ``data/ikea_columns.py``, which holds
+their rules on numpy columns. pandas is imported inside the functions that
 use it.
 """
 
@@ -33,11 +33,10 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from ikea_recommender_tpu_torch.data.preprocessing import window_sessions
+from ikea_recommender_tpu_torch.data import ikea_columns
+from ikea_recommender_tpu_torch.data.ikea_columns import INSPIRATION_ACTIONS  # noqa: F401
 from ikea_recommender_tpu_torch.data.storage import Storage, load_json_gz_records
 from ikea_recommender_tpu_torch.data.tokenizer import Tokenizer
-
-INSPIRATION_ACTIONS = ("click_inspiration", "select_content")
 
 
 # The three functions below implement a FIXED ETL contract over the raw
@@ -147,64 +146,11 @@ def prepare_full_data(
 def mark_last_inspiration_click(df, session_col: str = "sessionID") -> np.ndarray:
     """Boolean column: True only on the LAST inspiration-click row of each
     session (otherwise no episode-end signal would survive the filtering —
-    reference :186-208). Vectorized over the whole frame."""
-    import pandas as pd
-
-    cond = df["action_type"].isin(INSPIRATION_ACTIONS)
-    idx = pd.Series(df.index.where(cond), index=df.index, dtype="float64")
-    last = idx.groupby(df[session_col]).transform("max")
-    return (df.index == last).to_numpy()
-
-
-def _nstep_next_state_and_reward(df, future_steps, session_col="sessionID"):
-    """Apply the n-step / till-next-click next-state + cumulated-reward
-    transform to the pre-filter frame (reference :211-291).
-
-    future_steps: "all" | int >= 2.
-    Mutates ``next_state`` and ``reward`` columns on inspiration rows.
-    """
-    import pandas as pd
-
-    cond = df["action_type"].isin(INSPIRATION_ACTIONS)
-    g = df.groupby(session_col, sort=False)
-
-    if future_steps == "all":
-        # next_state: state of the NEXT inspiration row in the session;
-        # the session's last inspiration row keeps its own next_state.
-        insp = df[cond]
-        nxt = insp.groupby(insp[session_col], sort=False)["state"].shift(-1)
-        keep_own = nxt.isna()
-        df.loc[insp.index[~keep_own], "next_state"] = nxt[~keep_own]
-
-        # reward: if the immediately-following row is another inspiration
-        # click -> own reward; else own + following non-inspiration rewards
-        # up to (excl.) the next inspiration row / session end.
-        grp = cond.groupby(df[session_col], sort=False).cumsum()
-        group_sum = df.groupby([df[session_col], grp], sort=False)["reward"].transform("sum")
-        next_is_insp = (
-            cond.groupby(df[session_col], sort=False).shift(-1).fillna(False)
-        )
-        new_rew = np.where(cond & next_is_insp, df["reward"], group_sum)
-        df.loc[cond, "reward"] = new_rew[cond.to_numpy()]
-    elif int(future_steps) >= 2:
-        k = int(future_steps)
-        shifted_state = g["state"].shift(-k)
-        keep_own = shifted_state.isna()
-        take = cond & ~keep_own
-        df.loc[take, "next_state"] = shifted_state[take]
-        # True cumulated k-step return: own reward + the next k-1 rewards,
-        # truncated at the session boundary. At k=2 this reproduces the
-        # reference exactly (own + immediate next, reference
-        # ikea/data_utils/preprocessing.py:283-287); the reference raises
-        # NotImplementedError for k>2 — this is the generalization its
-        # docstring describes.
-        total = df["reward"].astype(float).copy()
-        for j in range(1, k):
-            total = total + g["reward"].shift(-j).fillna(0.0)
-        df["reward"] = total
-    else:
-        raise ValueError("future_steps must be 'all' or an int >= 2")
-    return df
+    reference :186-208). "Last" is by row order; the reference compares
+    index labels, the same on the default index ``preprocess_train_data``
+    gives it."""
+    return ikea_columns.mark_last_inspiration_click(
+        df["action_type"].to_numpy(), df[session_col].to_numpy())
 
 
 def preprocess_train_data(
@@ -220,71 +166,26 @@ def preprocess_train_data(
     action_name: str = "item_id",
     future_steps_next_state: Union[int, str] = 1,
 ):
-    """Event frame -> 7-column IKEA replay buffer (dual tokenizers)."""
+    """Event frame (or CSV path) -> 7-column IKEA replay buffer frame (dual
+    tokenizers), through ``ikea_columns.preprocess_train_columns``."""
     import pandas as pd
 
-    if isinstance(src, str):
-        df = pd.read_csv(src)
-    else:
-        df = src.copy()
-
-    if isinstance(tokenizer_input, str):
-        tokenizer_input = Tokenizer.from_file(tokenizer_input)
-    if isinstance(tokenizer_output, str):
-        tokenizer_output = Tokenizer.from_file(tokenizer_output)
-    if isinstance(tokenizer_market, str):
-        tokenizer_market = Tokenizer.from_file(tokenizer_market)
-
-    df[action_name] = df[action_name].map(tokenizer_input.stoi)
-    if tokenizer_market is not None and "market" in df.columns:
-        df["market"] = df["market"].map(tokenizer_market.stoi)
-    df.reset_index(drop=True, inplace=True)
-
-    # Window over ALL events (views extend history; only clicks are samples)
-    win = window_sessions(
-        items=df[action_name].to_numpy(),
-        session_ids=df[session_id_name].to_numpy(),
+    df = pd.read_csv(src) if isinstance(src, str) else src
+    names = (session_id_name, action_name, "action_type", reward_name, "market")
+    out = ikea_columns.preprocess_train_columns(
+        {k: df[k].to_numpy() for k in names if k in df.columns},
+        padding_id=padding_id,
         state_len=state_len,
-        pad_id=padding_id,
+        tokenizer_market=tokenizer_market,
+        tokenizer_input=tokenizer_input,
+        tokenizer_output=tokenizer_output,
         pad_pos=pad_pos,
+        reward_name=reward_name,
+        session_id_name=session_id_name,
+        action_name=action_name,
+        future_steps_next_state=future_steps_next_state,
     )
-    df["state"] = list(win.state)
-    df["next_state"] = list(win.next_state)
-    df["is_end"] = mark_last_inspiration_click(df, session_id_name)
-
-    if future_steps_next_state != 1:
-        df = _nstep_next_state_and_reward(
-            df, future_steps_next_state, session_col=session_id_name
-        )
-
-    # Keep only the real actions: inspiration clicks.
-    df = df[df["action_type"].isin(INSPIRATION_ACTIONS)].copy()
-
-    # action: input token -> string -> output token.
-    df[action_name] = df[action_name].map(
-        lambda idx: tokenizer_output.stoi(tokenizer_input.itos(int(idx)))
-    )
-
-    # true lens derived by counting pad tokens (reference :452-463).
-    pad_idx = tokenizer_input.pad_idx if tokenizer_input.pad_idx is not None else padding_id
-    state_arr = np.stack(df["state"].to_numpy())
-    next_arr = np.stack(df["next_state"].to_numpy())
-    true_len = state_len - (state_arr == pad_idx).sum(axis=1)
-    true_len[true_len == 0] = 1
-    true_next_len = state_len - (next_arr == pad_idx).sum(axis=1)
-
-    out = pd.DataFrame(
-        {
-            "state": list(state_arr),
-            "action": df[action_name].to_numpy(),
-            "r_act": df[reward_name].to_numpy(),
-            "next_state": list(next_arr),
-            "true_state_len": true_len,
-            "true_next_state_len": true_next_len,
-            "is_end": df["is_end"].to_numpy(),
-        }
-    )
-    return out
+    return pd.DataFrame({k: list(v) if v.ndim == 2 else v for k, v in out.items()})
 
 
 def to_eval_frame(train_df):

@@ -120,3 +120,22 @@ def build_output_to_input_table(
         count=len(output_tokenizer),
     )
     return table
+
+
+def build_input_to_output_table(
+    input_tokenizer: Tokenizer, output_tokenizer: Tokenizer
+) -> np.ndarray:
+    """Input-token -> output-token remap as an int64 table, -1 where the
+    output vocabulary lacks the token (its ``<unk>`` where it has one).
+
+    ``table[ids]`` is ``output_tokenizer.stoi(input_tokenizer.itos(i))`` for
+    every id whose token the output vocabulary holds, the per-row remap of
+    ``data/ikea.py::preprocess_train_data`` as one gather; on the output
+    vocabulary's tokens it inverts :func:`build_output_to_input_table`."""
+    missing = -1 if output_tokenizer.unk_idx is None else output_tokenizer.unk_idx
+    get = output_tokenizer.stoi_.get
+    return np.fromiter(
+        (get(s, missing) for s in input_tokenizer.itos_),
+        dtype=np.int64,
+        count=len(input_tokenizer),
+    )

@@ -37,7 +37,6 @@ subcommand writes ``command_<cmd>.json`` (``utils/invocation.py``).
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import math
 import os
@@ -260,16 +259,6 @@ def buffers(args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def find_div_embedding(out: str) -> Optional[str]:
-    """A sibling gru4rec run's ``embedding_weights.npy`` next to ``out``
-    (the script's discovery): a gru4rec run's first, else any."""
-    parent = os.path.dirname(os.path.abspath(out))
-    candidates = sorted(glob.glob(os.path.join(parent, "*", "embedding_weights.npy"))) + sorted(
-        glob.glob(os.path.join(parent, "embedding_weights.npy")))
-    pretrained = [c for c in candidates if "gru4rec" in c.lower()] or candidates
-    return pretrained[0] if pretrained else None
-
-
 def run_config(args, div_emb_path: Optional[str]):
     """The script's ``Config`` for ``args`` (``scripts/retailrocket.py:287-328``):
     batch 256, val batch 2000, lr 0.01, E = H = 64, gamma 0.5."""
@@ -333,54 +322,14 @@ def run(args):
     """Train ``args.family`` on ``args.device`` (default the card; raises
     without CUDA unless ``--device cpu``) and write run_summary.json;
     returns the trainer's ``TrainOutcome``."""
-    import torch
+    from ikea_recommender_tpu_torch.run._rehearsal import train_and_summarize
 
-    from ikea_recommender_tpu_torch.core.device import resolve_device
-    from ikea_recommender_tpu_torch.run.trainer import train
-
-    device = resolve_device(getattr(args, "device", "cuda"))
-    # fp32 products, as the CLI runs them (run/cli.py)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    os.makedirs(args.out, exist_ok=True)
-    # The frozen diversity-embedding chain: the gru4rec leg exports
-    # embedding_weights.npy to its --out; the smorl leg reads --div-emb or
-    # a sibling gru4rec run's export.
-    div_emb_path = getattr(args, "div_emb", None)
-    if args.family == "smorl" and not div_emb_path:
-        div_emb_path = find_div_embedding(args.out)
-        if div_emb_path is None:
-            raise SystemExit(
-                "[run] smorl needs a frozen diversity embedding: run the "
-                "gru4rec leg first (it exports embedding_weights.npy to its "
-                "--out) or pass --div-emb explicitly. Without it the "
-                "diversity reward is identically 0 (dead third objective)."
-            )
-        print(f"[run] smorl: auto-discovered diversity embedding {div_emb_path}")
-    cfg = run_config(args, div_emb_path)
-    out = train(cfg, progress=True, device=device)
-    print(json.dumps(out.test_metrics, indent=2))
-    keys = [k for k in out.test_metrics if "HR" in k or "NDCG" in k]
-    print("[run] headline:", {k: round(out.test_metrics[k], 4) for k in sorted(keys)})
-    print(f"[run] best {cfg.train.best_model_metric}={out.best_metric:.4f} "
-          f"@ eval point {out.best_epoch}")
-    print(f"[run] in-loop throughput: {out.throughput_sessions_per_sec:,.0f} sessions/s "
-          f"(train spans only, host clock to the device)")
-    with open(os.path.join(args.out, "run_summary.json"), "w") as fh:
-        json.dump({
-            "family": args.family,
-            "epochs": args.epochs,
-            "best_metric": out.best_metric,
-            "best_epoch": out.best_epoch,
-            "test_metrics": out.test_metrics,
-            "train_sessions_per_sec": out.throughput_sessions_per_sec,
-            "timing": out.timing,  # idx_build/dispatch/sync/eval breakdown
-            "div_emb": div_emb_path,
-            "preset": getattr(args, "preset", None),
-            "logs": out.logs,  # per-eval-point metric curves
-        }, fh, indent=2)
-    return out
+    return train_and_summarize(
+        args, run_config,
+        "[run] smorl needs a frozen diversity embedding: run the gru4rec leg "
+        "first (it exports embedding_weights.npy to its --out) or pass --div-emb "
+        "explicitly. Without it the diversity reward is identically 0 (dead "
+        "third objective).")
 
 
 def get_parser() -> argparse.ArgumentParser:

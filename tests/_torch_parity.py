@@ -143,3 +143,43 @@ def torch_leaves(tree):
     from ikea_recommender_tpu_torch.convert import tree_leaves
 
     return [x.detach().float().cpu().numpy() for x in tree_leaves(tree)]
+
+
+def jax_trainer_init(cfg):
+    """The reference trainer's init for ``cfg`` (its ``_build_state``), as
+    numpy, and for double-Q the state's coin key (else None)."""
+    import jax
+
+    from ikea_recommender_tpu.models.families import model_config_from_train
+    from ikea_recommender_tpu.train import state as jax_state
+    from ikea_recommender_tpu_torch.run.trainer import DOUBLE_Q_FAMILIES
+
+    jmc = model_config_from_train(cfg.train, cfg.data)
+    key = jax.random.key(cfg.seed)
+    lr = cfg.train.learning_rate
+    if cfg.train.model in DOUBLE_Q_FAMILIES:
+        st = jax_state.make_double_q_state(
+            key, jmc, lr, single_optimizer=(cfg.train.double_q_optimizers == 1))[0]
+        return tuple(jax.tree.map(np.asarray, p) for p in st.params), st.rng
+    return jax.tree.map(np.asarray, jax_state.make_train_state(key, jmc, lr)[0].params), None
+
+
+def replay_jax_coins(monkeypatch, rng):
+    """The port's trainer's double-Q step takes the reference's coin for its
+    step, ``bernoulli(fold_in(rng, step))``, through ``coin=``."""
+    import jax
+
+    from ikea_recommender_tpu_torch.run import trainer as port_trainer
+
+    make = port_trainer.make_train_step
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def call(state, batch):
+            coin = int(jax.random.bernoulli(jax.random.fold_in(rng, state.step)))
+            return step(state, batch, coin=coin)
+
+        return call
+
+    monkeypatch.setattr(port_trainer, "make_train_step", wrapped)

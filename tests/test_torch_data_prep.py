@@ -280,12 +280,29 @@ def test_record_invocation(tmp_path):
 # ---- data/native.py ----------------------------------------------------------
 
 
+@pytest.fixture(scope="session")
+def ref_native_private_path(tmp_path_factory):
+    """Where this process builds its own copy of the reference's library."""
+    return str(tmp_path_factory.mktemp("ref_native") / "libikea_native.so")
+
+
 @pytest.fixture
-def native_lib():
+def native_lib(monkeypatch, ref_native_private_path):
     """Both packages' native parsers, built on first use; skips where the
-    host compiler cannot build them."""
+    host compiler cannot build them.
+
+    The reference builds its library straight into the shared
+    ``native/build/libikea_native.so``, so a process that loads it while
+    another still writes it fails, and the reference then refuses to load
+    for the rest of that process. Here the reference module is pointed at
+    a build of its own in this process's temporary directory (its own
+    command and flags), with its load state cleared for the test and put
+    back afterwards; the shared path is never read."""
     if not native.available():
         pytest.skip("the native JSON-lines parser could not be built (no host C++ compiler?)")
+    monkeypatch.setattr(ref_native, "_LIB", ref_native_private_path)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_build_failed", False)
     if not ref_native.available():
         pytest.skip("the reference's native parser could not be built")
     return native

@@ -4,7 +4,8 @@ silent move to the CPU.
 - every ``.py`` file of ``ikea_recommender_tpu_torch/`` and ``chip_smoke.py``
   is scanned for imports of jax, jaxlib, flax, optax or ikea_recommender_tpu,
   and the modules that replace pandas code (the analysis, the scaling bench,
-  the RetailRocket protocol) for pandas too;
+  the RetailRocket protocol, the IKEA rehearsal and its columns path) for
+  pandas too;
 - importing every port module in a fresh interpreter loads no ``jax`` and
   no ``pandas``; importing a subpackage imports none of its modules (no
   kernel builds), and each exports the reference's names but those without
@@ -30,7 +31,8 @@ PORT = REPO / "ikea_recommender_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ikea_recommender_tpu"}
 # modules that run without pandas where the reference's need it
 PANDAS_FREE = ("analysis/__init__.py", "analysis/embeddings.py", "analysis/trajectories.py",
-               "analysis/visualize.py", "parallel/scaling_bench.py", "run/retailrocket.py")
+               "analysis/visualize.py", "parallel/scaling_bench.py", "run/retailrocket.py",
+               "run/ikea_rehearsal.py", "run/_rehearsal.py", "data/ikea_columns.py")
 SUBPACKAGES = ("core", "data", "models", "ops", "train", "eval", "run", "utils", "analysis",
                "parallel")
 # the reference's exports that have no counterpart in the port
@@ -86,7 +88,8 @@ def test_importing_the_port_loads_no_jax():
                 "parallel.fused_ce", "parallel.q_kernels", "parallel.sharding",
                 "parallel.__init__", "parallel.scaling_bench", "analysis.__init__",
                 "analysis.embeddings", "analysis.trajectories", "analysis.visualize",
-                "run.retailrocket", "_exports"):
+                "run.retailrocket", "run.ikea_rehearsal", "run._rehearsal", "data.ikea_columns",
+                "_exports"):
         assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -226,6 +229,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
         retailrocket.main(argv)
     with pytest.raises(FileNotFoundError):  # on the CPU it gets as far as the buffers
         retailrocket.main(argv + ["--device", "cpu"])
+    from ikea_recommender_tpu_torch.run import ikea_rehearsal
+
+    argv = ["run", "--buffers", str(tmp_path / "none"), "--out", str(tmp_path / "ikea")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ikea_rehearsal.main(argv)
+    with pytest.raises(FileNotFoundError):
+        ikea_rehearsal.main(argv + ["--device", "cpu"])
     rows = Batch(**qbatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         batch_to_device_dict(rows)

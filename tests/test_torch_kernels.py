@@ -82,6 +82,7 @@ SHAPES = [  # (B, T, H, masked, reverse) over B3's layouts: W_h in registers up 
     (64, 1, 128, False, True),
     (2000, 10, 64, True, False),  # the eval batch: 500 blocks of 4 rows, ~3.8 waves
     (2000, 10, 128, True, True),  # the eval batch at the bidir point
+    (5000, 10, 64, True, False),  # the IKEA eval batch: 1250 blocks of 4 rows
 ]
 
 BWD_SHAPES = [  # (B, T, H, masked, reverse) over B4's layouts: 2 rows a block and W_h
@@ -122,6 +123,7 @@ CE_SHAPES = [  # (B, F, A, valid, precision, nan_tail)
     (37, 90, 1000, 777, "high", False),
     (100, 250, 4099, 4001, "high", True),
     (100, 250, 4099, 4001, "default", True),
+    (256, 64, 10000, 10000, "high", False),  # the IKEA train point: 10000 images
 ]
 
 # B2's off-label dW where it is not held to 1e-5. In "default" B2 rounds dl
@@ -494,6 +496,7 @@ ARGMAX_SHAPES = [  # (B, F, A, valid, K or None for B5, precision, nan_tail)
     (256, 64, 70852, 70852, 3, "default", False),  # the smorl point in "default"
     (300, 128, 4096, 3000, 5, "high", True),  # the most B6 takes: 32-column blocks
     (100, 40, 4099, 4001, 3, "high", True),  # A % 4 != 0 with three heads
+    (256, 64, 10000, 10000, 3, "high", False),  # the IKEA smorl point: 10000 images
 ]
 
 
@@ -553,13 +556,14 @@ def test_fused_argmax_matches_twin(cuda_device, B, F, A, valid, K, precision, na
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("A,valid", [(70912, 70852), (10000, 10000)])  # the IKEA head
 @pytest.mark.parametrize("K", [None, 3])
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
-def test_fused_argmax_exact_ties(cuda_device, K, precision):
+def test_fused_argmax_exact_ties(cuda_device, K, precision, A, valid):
     """Small integers: many rows tie at their max, and columns 127 and 128
     (the two sides of a kernel tile edge) and the last valid column are
     copies of column 127, made every row's largest. The lowest id wins."""
-    B, F, A, valid = 256, 64, 70912, 70852
+    B, F = 256, 64
     h, w, b, q = _argmax_inputs(B, F, A, valid, K, True, cuda_device, integer=True, seed=3)
     idx, mx = _run_argmax(h, w, b, q, valid, precision)
     torch.cuda.synchronize()

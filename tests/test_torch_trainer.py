@@ -52,6 +52,8 @@ from ikea_recommender_tpu_torch.run import checkpoints as port_ckpt
 from ikea_recommender_tpu_torch.run import cli, logging_sinks
 from ikea_recommender_tpu_torch.run import trainer as port_trainer
 
+from _torch_parity import jax_trainer_init, replay_jax_coins
+
 REPO = Path(__file__).resolve().parent.parent
 A, E, T = 50, 16, 6
 TOPK_HR, TOPK_COV = (5, 10), (1, 5)
@@ -89,35 +91,6 @@ def _smorl_inputs():
     rs = np.random.RandomState(0)
     return dict(div_embedding=rs.randn(A + 1, E).astype(np.float32),
                 unpopular=set(range(0, A, 3)))
-
-
-def _jax_init(cfg):
-    """The reference trainer's init (its ``_build_state``), as numpy, and
-    for double-Q the state's coin key."""
-    jmc = jax_mcft(cfg.train, cfg.data)
-    key = jax.random.key(cfg.seed)
-    lr = cfg.train.learning_rate
-    if cfg.train.model in port_trainer.DOUBLE_Q_FAMILIES:
-        st = jax_state.make_double_q_state(
-            key, jmc, lr, single_optimizer=(cfg.train.double_q_optimizers == 1))[0]
-        return tuple(jax.tree.map(np.asarray, p) for p in st.params), st.rng
-    return jax.tree.map(np.asarray, jax_state.make_train_state(key, jmc, lr)[0].params), None
-
-
-def _replay_coins(monkeypatch, rng):
-    """The port's double-Q step takes the reference's coin for its step."""
-    make = port_trainer.make_train_step
-
-    def wrapped(*args, **kw):
-        step = make(*args, **kw)
-
-        def call(state, batch):
-            coin = int(jax.random.bernoulli(jax.random.fold_in(rng, state.step)))
-            return step(state, batch, coin=coin)
-
-        return call
-
-    monkeypatch.setattr(port_trainer, "make_train_step", wrapped)
 
 
 class _NearTies(EvalProtocol):
@@ -180,9 +153,9 @@ def _run_both(monkeypatch, tmp_path, model, epochs, fused=False, train_metrics=T
     extra = _smorl_inputs() if model == "smorl" else {}
     jtrain, jval = _buffers(jax_synth)
     want = jax_trainer.train(jcfg, train_buf=jtrain, val_buf=jval, **extra)
-    init, rng = _jax_init(jcfg)
+    init, rng = jax_trainer_init(jcfg)
     if rng is not None:
-        _replay_coins(monkeypatch, rng)
+        replay_jax_coins(monkeypatch, rng)
     protos = []
 
     def recording(*args, **kw):
