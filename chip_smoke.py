@@ -201,22 +201,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    per step plus B3 per eval batch; "[mesh-trainer]" lines give ms per
    step per rank, sessions/s, collectives per step per axis and the
    phase's seconds, none of them a multi-GPU speed.
-13. RetailRocket (ROADMAP A.9c, A.10's first step): the protocol without
+13. RetailRocket (ROADMAP A.9c, A.10): the protocol without
    pandas (``run/retailrocket.py``) at r5b's invocation
    (``experiments/RetailRocket-Comparison/rehearsal_r5b/command_{synth,
    etl,buffers}.json``: 260000 sessions, 135000 items, seed 0, state_len
    10): synth, etl and buffers, each step's host seconds, the splits'
    rows, sessions and buys; the catalog must be 72293 (``RESULTS.md:152``).
-   Then ``run --family gru4rec --epochs 1 --no-train-metrics`` on the card
-   at the paper point (batch 256, lr 0.01, E = H = 64; ~1.72M train rows),
-   its launches ``PER_STEP`` per step plus B3 per eval batch, its logs
-   finite, sessions/s and the test HR@10 and NDCG@10 printed; on that
-   model the analysis (``analysis/``): ``find_hits`` over the test buffer
-   (its hit share must be the test HR@10), ``predict_and_describe`` on 3
-   hits (each true action in its top-10), ``render_predictions_html``,
-   ``sample_trajectories``, ``nearest_neighbors`` on the exported
-   embedding held to the same function on the CPU, a served top-1 the
-   head's argmax, B3 once per ``recommend`` call and no other kernel;
+   Then ``run --family gru4rec --epochs 1 --no-train-metrics`` and the
+   same for sqn (ROADMAP A.10: B5 once a step) on the card at the paper
+   point (batch 256, lr 0.01, E = H = 64; ~1.72M train rows), each run's
+   launches ``PER_STEP`` per step plus B3 per eval batch (both nets' val
+   passes for sqn), its logs finite, sessions/s and the test HR@10 and
+   NDCG@10 printed; on the gru4rec model the analysis (``analysis/``):
+   ``find_hits`` over the test buffer (its hit share must be the test
+   HR@10), ``predict_and_describe`` on 3 hits (each true action in its
+   top-10), ``render_predictions_html``, ``sample_trajectories``,
+   ``nearest_neighbors`` on the exported embedding held to the same
+   function on the CPU, a served top-1 the head's argmax, B3 once per
+   ``recommend`` call and no other kernel;
    then ``parallel/scaling_bench.py::run_scaling_bench`` for smorl at the
    bench width (catalog 70852, E = H = 64, 256 rows a rank) on (1, 1),
    (2, 1) and (1, 2), two ranks spawned on the card over gloo (phase 11's
@@ -3898,9 +3900,9 @@ def rr_argv(tmp):
 
 def phase_retailrocket(smi):
     """The RetailRocket protocol without pandas (``run/retailrocket.py``)
-    at the r5b invocation, gru4rec trained on it one epoch on the card, the
-    analysis functions on that model and the shared-card scaling points.
-    Returns each path's launches."""
+    at the r5b invocation, gru4rec and sqn trained on it one epoch each on
+    the card through ``run``, the analysis functions on the gru4rec model
+    and the shared-card scaling points. Returns each path's launches."""
     import contextlib
     import io
     import tempfile
@@ -3936,36 +3938,41 @@ def phase_retailrocket(smi):
               f"{meta['num_items']} (= {RR_CATALOG}); splits {json.dumps(sizes)}; host s "
               f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
 
-        # gru4rec one epoch at the paper point, train metrics off
+        # gru4rec, then sqn (B5 once a step), one epoch each at the paper
+        # point, train metrics off
         val_buf = EvalBuffer(os.path.join(bufs, "val_buffer.npz"))
         test_buf = EvalBuffer(os.path.join(bufs, "test_buffer.npz"))
         n_b = num_batches(len(np.load(os.path.join(bufs, "replay_buffer.npz"))["action"]), 256)
         n_val, n_test = num_batches(len(val_buf), 2000), num_batches(len(test_buf), 2000)
-        out = f"{tmp}/runs/gru4rec_run"
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        reset_counters()
-        with contextlib.redirect_stdout(io.StringIO()):
-            outcome = rr.main(["run", "--buffers", bufs, "--family", "gru4rec", "--epochs", "1",
-                               "--no-train-metrics", "--out", out])
-        torch.cuda.synchronize()
-        launches = counters()
-        run_s = time.perf_counter() - t0
-        want = trainer_launches("gru4rec", outcome, n_b, n_val, n_test, train_metrics=False)
-        if launches != want:
-            fail(f"retailrocket run gru4rec launched {launches}, expected {want}")
-        check_logs("retailrocket gru4rec", outcome)
-        summary = json.load(open(os.path.join(out, "run_summary.json")))
-        tm = summary["test_metrics"]
-        hr, ndcg = tm["Test_HR@10"], tm["Test_NDCG@10"]
-        paths["retailrocket gru4rec"] = launches
-        print(f"[retailrocket] run gru4rec 1 epoch (--no-train-metrics; batch 256, lr 0.01, "
-              f"E=H=64, catalog {RR_CATALOG}): {n_b} steps, "
-              f"{summary['train_sessions_per_sec']:.0f} sessions/s of the train loop, test "
-              f"HR@10 {hr:.6f} NDCG@10 {ndcg:.6f}, best {summary['best_metric']:.6f}; "
-              f"{run_s:.1f} s; launches {json.dumps(launches)}; {smi}")
+        for family in ("gru4rec", "sqn"):
+            out = f"{tmp}/runs/{family}_run"
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            reset_counters()
+            with contextlib.redirect_stdout(io.StringIO()):
+                outcome = rr.main(["run", "--buffers", bufs, "--family", family, "--epochs", "1",
+                                   "--no-train-metrics", "--out", out])
+            torch.cuda.synchronize()
+            launches = counters()
+            run_s = time.perf_counter() - t0
+            want = trainer_launches(family, outcome, n_b, n_val, n_test, train_metrics=False)
+            if launches != want:
+                fail(f"retailrocket run {family} launched {launches}, expected {want}")
+            check_logs(f"retailrocket {family}", outcome)
+            summary = json.load(open(os.path.join(out, "run_summary.json")))
+            tm = summary["test_metrics"]
+            paths[f"retailrocket {family}"] = launches
+            print(f"[retailrocket] run {family} 1 epoch (--no-train-metrics; batch 256, lr "
+                  f"0.01, E=H=64, catalog {RR_CATALOG}): {n_b} steps, "
+                  f"{summary['train_sessions_per_sec']:.0f} sessions/s of the train loop, test "
+                  f"HR@10 {tm['Test_HR@10']:.6f} NDCG@10 {tm['Test_NDCG@10']:.6f}, best "
+                  f"{summary['best_metric']:.6f}; {run_s:.1f} s; launches "
+                  f"{json.dumps(launches)}; {smi}")
+            if family == "gru4rec":
+                hr = tm["Test_HR@10"]
 
-        # the analysis functions on that model
+        # the analysis functions on the gru4rec model
+        out = f"{tmp}/runs/gru4rec_run"
         cfg = rr.run_config(rr.get_parser().parse_args(
             ["run", "--buffers", bufs, "--family", "gru4rec", "--out", out]), None)
         mc = model_config_from_train(cfg.train, cfg.data)

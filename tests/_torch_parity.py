@@ -36,6 +36,17 @@ def one_rank_mesh():
 
 
 @pytest.fixture
+def deterministic():
+    """On the CPU, ``index_put_(accumulate=True)`` (the backward of the
+    embedding and head-column gathers) sums duplicate indices across threads
+    in no fixed order unless torch is asked for deterministic algorithms;
+    on the card it sorts the indices first."""
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.fixture
 def cuda_device():
     """The card, for tests marked ``cuda``; skips where there is none."""
     if not torch.cuda.is_available():

@@ -43,7 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import as_jax_tree, assert_topk_match, model_configs
+from _torch_parity import as_jax_tree, assert_topk_match, deterministic, model_configs  # noqa: F401
 
 from ikea_recommender_tpu.models import families as jax_families
 from ikea_recommender_tpu.ops import fused_argmax as jfa
@@ -767,16 +767,6 @@ def test_fast_preset_trainer_matches_reference(monkeypatch, tmp_path, model):
     assert keys == set(np.load(tmp_path / "jax" / "best_model.npz").files)
     head = "q_head" if model == "sqn" else "q_heads"
     assert f"{head}/kernel_am" in keys and f"{head}/kernel" not in keys
-
-
-@pytest.fixture
-def deterministic():
-    """On the CPU, ``index_put_(accumulate=True)`` sums duplicate indices
-    across threads in no fixed order unless torch is asked for
-    deterministic algorithms; on the card it sorts them first."""
-    torch.use_deterministic_algorithms(True)
-    yield
-    torch.use_deterministic_algorithms(False)
 
 
 def test_fast_preset_resume_is_bit_identical(tmp_path, deterministic):

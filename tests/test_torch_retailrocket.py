@@ -22,6 +22,8 @@ import pytest
 
 from ikea_recommender_tpu_torch.run import retailrocket as port_rr
 
+from _torch_parity import deterministic  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
     "retailrocket_script", os.path.join(REPO, "scripts", "retailrocket.py"))
@@ -216,3 +218,135 @@ def test_smorl_without_pretrained_embeddings_refuses(protocol, tmp_path):
         port_rr.main([*argv, "--device", "cpu"])
     with pytest.raises(SystemExit, match="diversity embedding"):
         _script(argv)
+
+
+# -- run's Config and resume; the accuracy legs' runner ----------------------------
+
+
+class _Captured(Exception):
+    """Raised by a stand-in ``train`` with the Config it was handed."""
+
+    def __init__(self, cfg):
+        super().__init__("captured")
+        self.cfg = cfg
+
+
+def _script_config(argv, monkeypatch):
+    """The ``Config`` that ``scripts/retailrocket.py``'s ``run`` hands its
+    ``train`` for ``argv`` (the script stops there)."""
+    from ikea_recommender_tpu.run import trainer as jax_trainer
+
+    def capture(cfg, **_):
+        raise _Captured(cfg)
+
+    monkeypatch.setattr(jax_trainer, "train", capture)
+    with pytest.raises(_Captured) as got:
+        _script(argv)
+    return got.value.cfg
+
+
+def _fields(cfg):
+    """``{section: {field: value}}`` of a Config, its top-level scalars
+    under ``""``."""
+    import dataclasses
+
+    out = {"": {}}
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(value):
+            out[f.name] = {g.name: getattr(value, g.name) for g in dataclasses.fields(value)}
+        else:
+            out[""][f.name] = value
+    return out
+
+
+@pytest.mark.parametrize("checkpoint", [False, True], ids=["no_ckpt", "ckpt"])
+@pytest.mark.parametrize("preset", [None, "fast"], ids=["default", "fast"])
+@pytest.mark.parametrize("family", ["gru4rec", "sqn", "smorl"])
+def test_run_config_matches_the_script(protocol, tmp_path, monkeypatch, family, preset,
+                                       checkpoint):
+    """The port's ``run_config`` gives, field for field after the preset
+    resolves, the Config that the script's ``run`` trains with; no field is
+    in one package only."""
+    _, _, (_, _, bufs) = protocol
+    argv = ["run", "--buffers", bufs, "--family", family, "--epochs", "30",
+            "--no-train-metrics", "--out", str(tmp_path / f"{family}_run")]
+    if preset:
+        argv += ["--preset", preset]
+    if checkpoint:
+        argv.append("--checkpoint")
+    div = str(tmp_path / "gru4rec_run" / "embedding_weights.npy") if family == "smorl" else None
+    if div:
+        argv += ["--div-emb", div]
+    want = _fields(_script_config(argv, monkeypatch))
+    got = _fields(port_rr.run_config(port_rr.get_parser().parse_args(argv), div))
+    assert set(got) == set(want)
+    only = {(s, k) for s in want for k in set(got[s]) ^ set(want[s])}
+    assert not only, f"fields in one package only: {sorted(only)}"
+    for section in want:
+        for name, value in want[section].items():
+            assert got[section][name] == value, (section, name)
+    train = got["train"]
+    assert (train["preset"], train["resume"]) == (preset, checkpoint)
+    assert (train["checkpoint_dir"] is not None) == checkpoint
+    if preset == "fast":  # the preset resolved: "default" heads, bf16 moments
+        assert train["head_precision"] == "default"
+        assert train["optimizer_mv_dtype"] == "bfloat16"
+
+
+@pytest.mark.parametrize("family", ["gru4rec", "sqn"])
+def test_run_resumes_through_the_cli(protocol, tmp_path, deterministic, family):
+    """``run --epochs 2 --checkpoint`` then ``run --epochs 3 --checkpoint``
+    into the same ``--out`` ship what one uncut ``run --epochs 3`` ships:
+    the best metric, its eval point and ``test_metrics.json``."""
+    _, _, (_, _, bufs) = protocol
+
+    def run(out, epochs, *flags):
+        port_rr.main(["run", "--buffers", bufs, "--family", family, "--epochs", str(epochs),
+                      "--no-train-metrics", "--out", str(out), "--device", "cpu", *flags])
+        summary = json.loads((out / "run_summary.json").read_text())
+        return summary, (out / "test_metrics.json").read_text()
+
+    uncut, uncut_test = run(tmp_path / "uncut", 3)
+    run(tmp_path / "cut", 2, "--checkpoint")
+    assert sorted(os.listdir(tmp_path / "cut" / "ckpt")) == ["ckpt_1.pt", "ckpt_2.pt"]
+    resumed, resumed_test = run(tmp_path / "cut", 3, "--checkpoint")
+    assert len(resumed["logs"]) == 1  # the resumed run trained epoch 3 only
+    assert resumed["logs"] == uncut["logs"][2:]
+    assert (resumed["best_metric"], resumed["best_epoch"]) == (uncut["best_metric"],
+                                                              uncut["best_epoch"])
+    assert resumed_test == uncut_test
+
+
+_legs_spec = importlib.util.spec_from_file_location(
+    "torch_rr_legs", os.path.join(REPO, "scripts", "torch_rr_legs.py"))
+legs = importlib.util.module_from_spec(_legs_spec)
+_legs_spec.loader.exec_module(legs)
+R5B_LEGS = ("gru4rec", "gru4rec_fast", "sqn", "sqn_fast", "smorl", "smorl_fast")
+
+
+@pytest.mark.parametrize("leg", R5B_LEGS)
+def test_legs_run_r5bs_argv(leg):
+    """The runner's argv for each r5b leg parses, in the port's ``run``, to
+    the flags its ``command_run.json`` records."""
+    rec = json.load(open(os.path.join(legs.R5B, f"{leg}_command_run.json")))
+    args = port_rr.get_parser().parse_args(legs.leg_argv(leg, "bufs", "out"))
+    for key in ("family", "epochs", "preset", "checkpoint", "seed", "no_train_metrics"):
+        assert getattr(args, key) == rec[key], key
+    assert args.device == "cuda"  # the card, as the runner leaves it
+
+
+def test_legs_compare_holds_the_seed_spread(tmp_path, capsys):
+    """r5b's seed-1 gru4rec legs are within the bounds of its seed-0 legs
+    (curve gaps 0.0042 and 0.0047); a leg moved by 0.013 is not."""
+    for arm in ("gru4rec", "gru4rec_fast"):
+        summary = json.load(open(os.path.join(legs.R5B, f"{arm}_s1_run_summary.json")))
+        (tmp_path / f"{arm}_run_summary.json").write_text(json.dumps(summary))
+    assert legs.main(["compare", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "largest Val_NDCG@10 gap 0.004216 at eval point 13 of 30" in out
+    assert "gru4rec fast minus default, test NDCG@10: +0.023395 vs +0.021759" in out
+    summary["test_metrics"]["Test_NDCG@10"] -= 0.013  # the fast arm's
+    (tmp_path / "gru4rec_fast_run_summary.json").write_text(json.dumps(summary))
+    assert legs.main(["compare", str(tmp_path)]) == 1
+    assert capsys.readouterr().out.count("OUTSIDE") == 2  # the leg and the lead

@@ -52,7 +52,7 @@ from ikea_recommender_tpu_torch.run import checkpoints as port_ckpt
 from ikea_recommender_tpu_torch.run import cli, logging_sinks
 from ikea_recommender_tpu_torch.run import trainer as port_trainer
 
-from _torch_parity import jax_trainer_init, replay_jax_coins
+from _torch_parity import deterministic, jax_trainer_init, replay_jax_coins  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 A, E, T = 50, 16, 6
@@ -338,17 +338,6 @@ def test_sarm_train_matches_reference(monkeypatch, tmp_path, fused, gamma):
 
 
 # -- 4. resume --------------------------------------------------------------------
-
-
-@pytest.fixture
-def deterministic():
-    """On the CPU, ``index_put_(accumulate=True)`` (the backward of the
-    embedding and head-column gathers) sums duplicate indices across threads
-    in no fixed order unless torch is asked for deterministic algorithms;
-    on the card it sorts the indices first."""
-    torch.use_deterministic_algorithms(True)
-    yield
-    torch.use_deterministic_algorithms(False)
 
 
 def _port_run(exp_dir, epochs, **kw):
