@@ -201,19 +201,21 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    per step plus B3 per eval batch; "[mesh-trainer]" lines give ms per
    step per rank, sessions/s, collectives per step per axis and the
    phase's seconds, none of them a multi-GPU speed.
-13. RetailRocket (ROADMAP A.9c, A.10): the protocol without
+13. RetailRocket (ROADMAP A.9c, A.10, A.10b): the protocol without
    pandas (``run/retailrocket.py``) at r5b's invocation
    (``experiments/RetailRocket-Comparison/rehearsal_r5b/command_{synth,
    etl,buffers}.json``: 260000 sessions, 135000 items, seed 0, state_len
    10): synth, etl and buffers, each step's host seconds, the splits'
    rows, sessions and buys; the catalog must be 72293 (``RESULTS.md:152``).
    Then ``run --family gru4rec --epochs 1 --no-train-metrics`` and the
-   same for sqn (ROADMAP A.10: B5 once a step) on the card at the paper
-   point (batch 256, lr 0.01, E = H = 64; ~1.72M train rows), each run's
-   launches ``PER_STEP`` per step plus B3 per eval batch (both nets' val
-   passes for sqn), its logs finite, sessions/s and the test HR@10 and
-   NDCG@10 printed; on the gru4rec model the analysis (``analysis/``):
-   ``find_hits`` over the test buffer (its hit share must be the test
+   same for sqn (ROADMAP A.10: B5 once a step) and for smorl (A.10b: B6
+   once a step, ``--div-emb`` the gru4rec run's export; the first 1024
+   batches of the train rows, ``RR_SMORL_STEPS``) on the card at the
+   paper point (batch 256, lr 0.01, E = H = 64; ~1.72M train rows), each
+   run's launches ``PER_STEP`` per step plus B3 per eval batch (both nets'
+   val passes for sqn and smorl), its logs finite, sessions/s and the test
+   HR@10 and NDCG@10 printed, smorl's test Div_Reward nonzero; on the
+   gru4rec model the analysis (``analysis/``): ``find_hits`` over the test buffer (its hit share must be the test
    HR@10), ``predict_and_describe`` on 3 hits (each true action in its
    top-10), ``render_predictions_html``, ``sample_trajectories``,
    ``nearest_neighbors`` on the exported embedding held to the same
@@ -3854,6 +3856,10 @@ def phase_mesh_trainer(smi):
 
 RR_INVOCATION = "experiments/RetailRocket-Comparison/rehearsal_r5b"
 RR_CATALOG = 72293  # RESULTS.md:152, the r5b invocation's catalog after the ETL
+# phase 13's smorl run: the first 1024 batches of the train rows (a whole
+# epoch of its ~45 ms steps takes ~320 s, which the script's 1200 s cannot
+# hold beside the other phases)
+RR_SMORL_STEPS = 1024
 RR_SCALING_SPECS = ((1, 1), (2, 1), (1, 2))
 RR_SCALING_STEPS = (3, 20)  # warm-up, timed
 
@@ -3898,11 +3904,22 @@ def rr_argv(tmp):
     }
 
 
+def buffer_prefix(bufs, out, rows):
+    """``bufs`` in ``out`` with the train buffer cut to its first ``rows``
+    rows; the val and test buffers and the JSON files linked as they are."""
+    os.makedirs(out)
+    for name in os.listdir(bufs):
+        if name != "replay_buffer.npz":
+            os.symlink(os.path.join(bufs, name), os.path.join(out, name))
+    with np.load(os.path.join(bufs, "replay_buffer.npz")) as buf:
+        np.savez(os.path.join(out, "replay_buffer.npz"), **{k: buf[k][:rows] for k in buf.files})
+
+
 def phase_retailrocket(smi):
     """The RetailRocket protocol without pandas (``run/retailrocket.py``)
-    at the r5b invocation, gru4rec and sqn trained on it one epoch each on
-    the card through ``run``, the analysis functions on the gru4rec model
-    and the shared-card scaling points. Returns each path's launches."""
+    at the r5b invocation, gru4rec, sqn and smorl trained on it one epoch
+    each on the card through ``run``, the analysis functions on the gru4rec
+    model and the shared-card scaling points. Returns each path's launches."""
     import contextlib
     import io
     import tempfile
@@ -3938,34 +3955,49 @@ def phase_retailrocket(smi):
               f"{meta['num_items']} (= {RR_CATALOG}); splits {json.dumps(sizes)}; host s "
               f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
 
-        # gru4rec, then sqn (B5 once a step), one epoch each at the paper
-        # point, train metrics off
+        # gru4rec, then sqn (B5 once a step), then smorl (B6 once a step,
+        # the diversity reward read from the gru4rec run's export), one
+        # epoch each at the paper point, train metrics off
         val_buf = EvalBuffer(os.path.join(bufs, "val_buffer.npz"))
         test_buf = EvalBuffer(os.path.join(bufs, "test_buffer.npz"))
         n_b = num_batches(len(np.load(os.path.join(bufs, "replay_buffer.npz"))["action"]), 256)
         n_val, n_test = num_batches(len(val_buf), 2000), num_batches(len(test_buf), 2000)
-        for family in ("gru4rec", "sqn"):
+        div_emb = f"{tmp}/runs/gru4rec_run/embedding_weights.npy"
+        smorl_bufs = f"{tmp}/buffers_prefix"
+        buffer_prefix(bufs, smorl_bufs, RR_SMORL_STEPS * 256)
+        runs = (("gru4rec", bufs, n_b, []), ("sqn", bufs, n_b, []),
+                ("smorl", smorl_bufs, RR_SMORL_STEPS, ["--div-emb", div_emb]))
+        for family, run_bufs, steps, extra in runs:
             out = f"{tmp}/runs/{family}_run"
             t0 = time.perf_counter()
             torch.cuda.synchronize()
             reset_counters()
             with contextlib.redirect_stdout(io.StringIO()):
-                outcome = rr.main(["run", "--buffers", bufs, "--family", family, "--epochs", "1",
-                                   "--no-train-metrics", "--out", out])
+                outcome = rr.main(["run", "--buffers", run_bufs, "--family", family, "--epochs",
+                                   "1", "--no-train-metrics", *extra, "--out", out])
             torch.cuda.synchronize()
             launches = counters()
             run_s = time.perf_counter() - t0
-            want = trainer_launches(family, outcome, n_b, n_val, n_test, train_metrics=False)
+            want = trainer_launches(family, outcome, steps, n_val, n_test, train_metrics=False)
             if launches != want:
                 fail(f"retailrocket run {family} launched {launches}, expected {want}")
             check_logs(f"retailrocket {family}", outcome)
             summary = json.load(open(os.path.join(out, "run_summary.json")))
             tm = summary["test_metrics"]
             paths[f"retailrocket {family}"] = launches
+            said = ""
+            if family == "smorl":
+                if summary["div_emb"] != div_emb:
+                    fail(f"retailrocket smorl read the embedding {summary['div_emb']}")
+                if tm["Test_Div_Reward"] == 0:
+                    fail(f"retailrocket smorl: test Div_Reward is {tm['Test_Div_Reward']}")
+                said = (f", Div_Reward {tm['Test_Div_Reward']:.6f}, Nov_Reward "
+                        f"{tm['Test_Nov_Reward']:.6f} (--div-emb the gru4rec run's export)")
             print(f"[retailrocket] run {family} 1 epoch (--no-train-metrics; batch 256, lr "
-                  f"0.01, E=H=64, catalog {RR_CATALOG}): {n_b} steps, "
+                  f"0.01, E=H=64, catalog {RR_CATALOG}): {steps} steps"
+                  f"{' (the first train rows)' if steps < n_b else ''}, "
                   f"{summary['train_sessions_per_sec']:.0f} sessions/s of the train loop, test "
-                  f"HR@10 {tm['Test_HR@10']:.6f} NDCG@10 {tm['Test_NDCG@10']:.6f}, best "
+                  f"HR@10 {tm['Test_HR@10']:.6f} NDCG@10 {tm['Test_NDCG@10']:.6f}{said}, best "
                   f"{summary['best_metric']:.6f}; {run_s:.1f} s; launches "
                   f"{json.dumps(launches)}; {smi}")
             if family == "gru4rec":

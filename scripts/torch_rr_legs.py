@@ -5,7 +5,7 @@ and their comparison with r5b's record of the same legs.
 
     python3 scripts/torch_rr_legs.py stage ROOT
     python3 scripts/torch_rr_legs.py run ROOT --legs gru4rec gru4rec_fast ... \
-        --record DIR [--keep DIR]
+        --record DIR [--keep DIR] [--epochs N]
     python3 scripts/torch_rr_legs.py compare RECORD
 
 ``stage`` writes ``ROOT/{events.csv,data,buffers}`` through the port's
@@ -16,22 +16,33 @@ unless the catalog is 72293 (``chip_smoke.RR_CATALOG``).
 ``run`` trains each leg named (``<family>`` or ``<family>_fast``) on the
 card with ``python -m ikea_recommender_tpu_torch.run.retailrocket run`` at
 the flags of r5b's ``<leg>_command_run.json`` (family, epochs, preset,
-seed, train metrics, checkpoint) on ``ROOT/buffers``, one process a leg, in
-the order given, each leg's output in ``ROOT/runs/<leg>`` and its printed
-lines in ``ROOT/runs/<leg>.log``; a leg that fails is reported, the next
-one runs, and the command then exits 1. It copies each leg's
-``run_summary.json`` and ``command_run.json`` into ``--record`` as
-``<leg>_run_summary.json`` and ``<leg>_command_run.json``, appends the
-leg's wall seconds and the card's name and power limit to
-``--record/legs.jsonl``, and copies the gru4rec leg's
-``embedding_weights.npy`` (the smorl legs' frozen diversity embedding) into
-``--keep``.
+seed, train metrics, checkpoint, and for smorl the diversity embedding: the
+default gru4rec leg's ``ROOT/runs/gru4rec/embedding_weights.npy``) on
+``ROOT/buffers``, one process a leg, in the order given, each leg's output
+in ``ROOT/runs/<leg>`` and its printed lines in ``ROOT/runs/<leg>.log``; a
+leg that fails is reported, the next one runs, and the command then exits
+1. ``--epochs N`` cuts every leg named at N epochs (N eval points), where a
+leg of r5b's length does not fit the time at hand; the smorl legs need
+``ROOT/runs/gru4rec`` first, which a gru4rec leg cut at 3 epochs gives (its
+best eval point is 2 at 30). It copies each leg's ``run_summary.json`` and
+``command_run.json`` into ``--record`` as ``<leg>_run_summary.json`` and
+``<leg>_command_run.json`` where ``compare`` can hold them: the run passes
+r5b's best eval point and the record holds no longer run of the leg. It
+appends to ``--record/legs.jsonl`` the leg's wall seconds, ``cut_at``
+(null for an uncut leg) beside r5b's epochs, whether it was recorded, its
+best eval point and metric, its test HR@10 and NDCG@10, its Val NDCG@10
+curve, and the card's name and power limit; and
+copies an exported ``embedding_weights.npy`` into ``--keep``, with its
+sha256 and, for a cut leg, whether it equals the export of the record's
+uncut line of the same leg.
 
 ``compare`` holds each leg of RECORD to r5b's leg of the same name: test
 HR@10, test NDCG@10 and the best Val NDCG@10 within 0.01, Val NDCG@10
 within 0.015 at every eval point both runs have, and for each family with
 both arms the fast arm's lead in test NDCG@10 positive and within 0.01 of
-r5b's. It prints a line a leg and a family and exits 1 if any bound fails.
+r5b's. A cut leg ("cut at N of 30") is held at the eval points it has, by
+the best model within its cut, and must reach past r5b's best eval point.
+It prints a line a leg and a family and exits 1 if any bound fails.
 """
 
 import argparse
@@ -75,27 +86,35 @@ def stage(root):
     print(f"[legs] catalog {got}")
 
 
-def leg_argv(leg, buffers, out):
-    """``run``'s argv for ``leg`` at the flags r5b's ``command_run.json`` records."""
+def leg_argv(leg, buffers, out, epochs=None):
+    """``run``'s argv for ``leg`` at the flags r5b's ``command_run.json``
+    records, cut at ``epochs`` where given. r5b's ``div_emb`` (smorl's)
+    names a leg beside its ``out``; the argv names the same leg beside
+    ``out``."""
     rec = json.loads((R5B / f"{leg}_command_run.json").read_text())
     argv = ["run", "--buffers", str(buffers), "--family", rec["family"],
-            "--epochs", str(rec["epochs"]), "--seed", str(rec["seed"]), "--out", str(out)]
+            "--epochs", str(epochs or rec["epochs"]), "--seed", str(rec["seed"]),
+            "--out", str(out)]
     if rec.get("preset"):
         argv += ["--preset", rec["preset"]]
     if rec.get("no_train_metrics"):
         argv.append("--no-train-metrics")
     if rec.get("checkpoint"):
         argv.append("--checkpoint")
+    if rec.get("div_emb"):
+        argv += ["--div-emb",
+                 str(Path(out).parent / Path(rec["div_emb"]).relative_to(Path(rec["out"]).parent))]
     return argv
 
 
-def run_legs(root, legs, record, keep):
+def run_legs(root, legs, record, keep, epochs=None):
     record.mkdir(parents=True, exist_ok=True)
     smi = card()
     failed = []
     for leg in legs:
         out = root / "runs" / leg
-        argv = leg_argv(leg, root / "buffers", out)
+        argv = leg_argv(leg, root / "buffers", out, epochs)
+        want = json.loads((R5B / f"{leg}_run_summary.json").read_text())
         log = root / "runs" / f"{leg}.log"
         log.parent.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -108,31 +127,56 @@ def run_legs(root, legs, record, keep):
             print(f"[legs] {leg} exited {rc} after {wall:.1f} s", flush=True)
             failed.append(leg)
             continue
-        for name in ("run_summary.json", "command_run.json"):
-            shutil.copy(out / name, record / f"{leg}_{name}")
         summary = json.loads((out / "run_summary.json").read_text())
-        entry = {"leg": leg, "argv": argv, "wall_s": wall, "card": smi,
+        # the record keeps what ``compare`` can hold: a run past r5b's best
+        # eval point and no shorter than the run of the leg it holds
+        held = record / f"{leg}_run_summary.json"
+        recorded = summary["epochs"] > want["best_epoch"] and not (
+            held.exists() and json.loads(held.read_text())["epochs"] > summary["epochs"])
+        if recorded:
+            for name in ("run_summary.json", "command_run.json"):
+                shutil.copy(out / name, record / f"{leg}_{name}")
+        cut = summary["epochs"] if summary["epochs"] < want["epochs"] else None
+        tm = summary["test_metrics"]
+        entry = {"leg": leg, "argv": argv, "wall_s": wall, "card": smi, "cut_at": cut,
+                 "r5b_epochs": want["epochs"], "recorded": recorded,
+                 "best_epoch": summary["best_epoch"], "best_metric": summary["best_metric"],
+                 "test_metrics": {k: tm[k] for k in TEST_KEYS},
+                 "val_curve": [point[METRIC] for point in summary["logs"]],
                  "train_sessions_per_sec": summary["train_sessions_per_sec"],
                  "timing": summary["timing"]}
         emb = out / "embedding_weights.npy"
+        said = ""
         if keep and emb.exists():
             keep.mkdir(parents=True, exist_ok=True)
             shutil.copy(emb, keep / f"{leg}_embedding_weights.npy")
             entry["embedding_sha256"] = hashlib.sha256(emb.read_bytes()).hexdigest()
+            lines = record / "legs.jsonl"
+            uncut = [e["embedding_sha256"] for e in map(json.loads, lines.read_text().splitlines())
+                     if e["leg"] == leg and not e.get("cut_at") and "embedding_sha256" in e
+                     ] if lines.exists() else []
+            if cut and uncut:
+                same = entry["embedding_sha256"] == uncut[-1]
+                entry["embedding_equals_uncut"] = same
+                said = f"; its export {'equals' if same else 'differs from'} the uncut leg's"
         with open(record / "legs.jsonl", "a") as fh:
             fh.write(json.dumps(entry) + "\n")
-        tm = summary["test_metrics"]
-        print(f"[legs] {leg}: {wall / 60:.2f} min, {summary['train_sessions_per_sec']:.0f} "
+        said += (f"; recorded as {held.name}" if recorded else "; not recorded (short of "
+                 f"r5b's best eval point {want['best_epoch']}, or a longer run held)")
+        of = f" cut at {cut} of {want['epochs']}" if cut else ""
+        print(f"[legs] {leg}{of}: "
+              f"{wall / 60:.2f} min, {summary['train_sessions_per_sec']:.0f} "
               f"sessions/s of the train loop, test HR@10 {tm['Test_HR@10']:.6f} NDCG@10 "
               f"{tm['Test_NDCG@10']:.6f}, best {METRIC} {summary['best_metric']:.6f} @ eval "
-              f"point {summary['best_epoch']}; {smi}", flush=True)
+              f"point {summary['best_epoch']}{said}; {smi}", flush=True)
     return failed
 
 
 def compare_leg(got, want):
     """The figures of one leg against its reference leg: each test metric,
     the best Val NDCG@10 and its eval point, and the largest gap of the Val
-    NDCG@10 curves over the eval points both runs have."""
+    NDCG@10 curves over the eval points both runs have. A cut leg must pass
+    the reference's best eval point."""
     curve = [abs(a[METRIC] - b[METRIC]) for a, b in zip(got["logs"], want["logs"])]
     rows = {k: (got["test_metrics"][k], want["test_metrics"][k]) for k in TEST_KEYS}
     rows["best " + METRIC] = (got["best_metric"], want["best_metric"])
@@ -141,9 +185,11 @@ def compare_leg(got, want):
         "metrics": rows,
         "best_epoch": (got["best_epoch"], want["best_epoch"]),
         "eval_points": len(curve),
+        "cut": got["epochs"] < want["epochs"],
         "curve_gap": curve[worst],
         "curve_gap_at": worst,
-        "ok": all(abs(a - b) <= BOUND for a, b in rows.values()) and curve[worst] <= CURVE_BOUND,
+        "ok": (all(abs(a - b) <= BOUND for a, b in rows.values()) and curve[worst] <= CURVE_BOUND
+               and len(got["logs"]) > want["best_epoch"]),
     }
 
 
@@ -166,7 +212,9 @@ def compare(record):
         ok &= c["ok"]
         figures = "; ".join(f"{k} {a:.6f} vs {b:.6f} ({a - b:+.6f})"
                             for k, (a, b) in c["metrics"].items())
-        print(f"[compare] {leg}: {figures}; best eval point {c['best_epoch'][0]} vs "
+        cut = (f"cut at {got[leg]['epochs']} of {want[leg]['epochs']} (r5b's best point "
+               f"{want[leg]['best_epoch']}); " if c["cut"] else "")
+        print(f"[compare] {leg}: {cut}{figures}; best eval point {c['best_epoch'][0]} vs "
               f"{c['best_epoch'][1]}; largest {METRIC} gap {c['curve_gap']:.6f} at eval point "
               f"{c['curve_gap_at']} of {c['eval_points']}; "
               f"{'within' if c['ok'] else 'OUTSIDE'} the bounds")
@@ -191,6 +239,8 @@ def main(argv=None):
     r.add_argument("--legs", nargs="+", required=True)
     r.add_argument("--record", required=True)
     r.add_argument("--keep", default=None)
+    r.add_argument("--epochs", type=int, default=None,
+                   help="cut every leg named at this many epochs (default: r5b's)")
     sub.add_parser("compare").add_argument("record")
     args = p.parse_args(argv)
     if args.cmd == "compare":
@@ -201,7 +251,7 @@ def main(argv=None):
         return 0
     keep = Path(args.keep).resolve() if args.keep else None
     return 1 if run_legs(Path(args.root).resolve(), args.legs, Path(args.record).resolve(),
-                         keep) else 0
+                         keep, args.epochs) else 0
 
 
 if __name__ == "__main__":

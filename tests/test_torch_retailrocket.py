@@ -12,8 +12,10 @@ its refusal of smorl without one, as the script refuses.
 """
 
 import importlib.util
+import io
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -325,14 +327,23 @@ _legs_spec.loader.exec_module(legs)
 R5B_LEGS = ("gru4rec", "gru4rec_fast", "sqn", "sqn_fast", "smorl", "smorl_fast")
 
 
-@pytest.mark.parametrize("leg", R5B_LEGS)
-def test_legs_run_r5bs_argv(leg):
+@pytest.mark.parametrize("leg,cut", [(leg, None) for leg in R5B_LEGS] + [
+    (leg, 12) for leg in R5B_LEGS], ids=[*R5B_LEGS, *(f"{leg}-cut" for leg in R5B_LEGS)])
+def test_legs_run_r5bs_argv(leg, cut):
     """The runner's argv for each r5b leg parses, in the port's ``run``, to
-    the flags its ``command_run.json`` records."""
+    the flags its ``command_run.json`` records; a cut changes the epochs
+    alone. A smorl leg reads the default gru4rec leg's export beside its
+    ``--out``, as r5b's ``div_emb`` names it; no other leg reads one."""
     rec = json.load(open(os.path.join(legs.R5B, f"{leg}_command_run.json")))
-    args = port_rr.get_parser().parse_args(legs.leg_argv(leg, "bufs", "out"))
+    out = os.path.join("root", "runs", leg)
+    args = port_rr.get_parser().parse_args(legs.leg_argv(leg, "bufs", out, cut))
     for key in ("family", "epochs", "preset", "checkpoint", "seed", "no_train_metrics"):
-        assert getattr(args, key) == rec[key], key
+        assert getattr(args, key) == (cut if key == "epochs" and cut else rec[key]), key
+    assert (args.buffers, args.out) == ("bufs", out)
+    want = os.path.join("root", "runs", "gru4rec", "embedding_weights.npy")
+    assert args.div_emb == (want if leg.startswith("smorl") else None)
+    assert (rec["div_emb"] or "").endswith("/runs/gru4rec/embedding_weights.npy") == (
+        leg.startswith("smorl"))
     assert args.device == "cuda"  # the card, as the runner leaves it
 
 
@@ -350,3 +361,70 @@ def test_legs_compare_holds_the_seed_spread(tmp_path, capsys):
     (tmp_path / "gru4rec_fast_run_summary.json").write_text(json.dumps(summary))
     assert legs.main(["compare", str(tmp_path)]) == 1
     assert capsys.readouterr().out.count("OUTSIDE") == 2  # the leg and the lead
+
+
+@pytest.mark.parametrize("points,ok", [((12, 14), True), ((11, 14), False)],
+                         ids=["past_best", "short_of_best"])
+def test_legs_compare_a_cut_smorl_leg(tmp_path, capsys, points, ok):
+    """r5b's smorl legs cut to their first eval points: held at the points
+    they have, "cut at" printed; a leg that stops short of r5b's best eval
+    point (11) is outside the bounds."""
+    for leg, n in zip(("smorl", "smorl_fast"), points):
+        summary = json.load(open(os.path.join(legs.R5B, f"{leg}_run_summary.json")))
+        summary.update(epochs=n, logs=summary["logs"][:n])
+        (tmp_path / f"{leg}_run_summary.json").write_text(json.dumps(summary))
+    assert legs.main(["compare", str(tmp_path)]) == (0 if ok else 1)
+    out = capsys.readouterr().out
+    assert f"smorl: cut at {points[0]} of 30 (r5b's best point 11)" in out
+    assert f"smorl_fast: cut at {points[1]} of 30 (r5b's best point 13)" in out
+    assert f"at eval point 0 of {points[0]}; " in out
+    assert "smorl fast minus default, test NDCG@10: +0.034694 vs +0.034694" in out
+    assert out.count("OUTSIDE") == (0 if ok else 1)
+
+
+def test_legs_run_records_a_cut(tmp_path, monkeypatch):
+    """``run --epochs``: the line's ``cut_at`` beside r5b's epochs and the
+    run's figures; the record takes a run only where ``compare`` can hold
+    it (past r5b's best eval point, no shorter than the run held), and a
+    cut export is held to the uncut line's."""
+    root, record = tmp_path / "root", tmp_path / "record"
+    record.mkdir()
+    (record / "gru4rec_run_summary.json").write_text(json.dumps({"epochs": 30}))
+    emb = np.arange(6, dtype=np.float32).reshape(3, 2)
+    saved = io.BytesIO()
+    np.save(saved, emb)
+    (record / "legs.jsonl").write_text(json.dumps(
+        {"leg": "gru4rec", "embedding_sha256": legs.hashlib.sha256(
+            saved.getvalue()).hexdigest()}) + "\n")
+    def fake_run(cmd, cwd, stdout, stderr):
+        args = port_rr.get_parser().parse_args(cmd[3:])
+        os.makedirs(args.out, exist_ok=True)
+        summary = {"epochs": args.epochs, "best_epoch": 2, "best_metric": 0.42,
+                   "div_emb": args.div_emb, "train_sessions_per_sec": 1.0, "timing": {},
+                   "test_metrics": {"Test_HR@10": 0.7, "Test_NDCG@10": 0.42},
+                   "logs": [{"Val_NDCG@10": 0.4}] * args.epochs}
+        json.dump(summary, open(os.path.join(args.out, "run_summary.json"), "w"))
+        json.dump({"argv": cmd}, open(os.path.join(args.out, "command_run.json"), "w"))
+        if args.family == "gru4rec":
+            np.save(os.path.join(args.out, "embedding_weights.npy"), emb)
+        return subprocess.CompletedProcess(cmd, 0)
+
+    monkeypatch.setattr(legs.subprocess, "run", fake_run)
+    monkeypatch.setattr(legs, "card", lambda: "a card, 1 W")
+    for cut in (3, 12):  # smorl: short of r5b's best eval point (11), then past it
+        assert legs.main(["run", str(root), "--legs", "gru4rec", "smorl", "--epochs", str(cut),
+                          "--record", str(record), "--keep", str(tmp_path / "keep")]) == 0
+        smorl = record / "smorl_run_summary.json"
+        assert smorl.exists() == (cut > 11)
+    lines = [json.loads(line) for line in (record / "legs.jsonl").read_text().splitlines()]
+    assert [(e["leg"], e["cut_at"], e["r5b_epochs"], e["recorded"]) for e in lines[1:]] == [
+        ("gru4rec", 3, 30, False), ("smorl", 3, 30, False),
+        ("gru4rec", 12, 30, False), ("smorl", 12, 30, True)]
+    assert lines[2]["val_curve"] == [0.4] * 3
+    assert lines[2]["test_metrics"] == {"Test_HR@10": 0.7, "Test_NDCG@10": 0.42}
+    assert lines[1]["embedding_equals_uncut"] is True
+    assert json.loads((record / "gru4rec_run_summary.json").read_text()) == {"epochs": 30}
+    smorl = json.loads(smorl.read_text())
+    assert (smorl["epochs"], smorl["div_emb"]) == (
+        12, str(root / "runs" / "gru4rec" / "embedding_weights.npy"))
+    assert (tmp_path / "keep" / "gru4rec_embedding_weights.npy").exists()
