@@ -127,7 +127,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the test metrics it writes, write the best model, the checkpoint and
    a (70853, 64) embedding, log only finite values, and lower epoch 2's
    first-window train loss below epoch 1's; sqn and smorl for 1 epoch
-   through ``train(cfg, train_buf=...)``, with both nets' ``Sec_`` keys;
+   through ``train(cfg, train_buf=...)``, with both nets' ``Sec_`` keys
+   (every run through ``train`` evaluates once an epoch, ``eval_at``
+   [1]: no check reads a point within an epoch, and each point that
+   improves writes a compressed best model);
    sarm for 1 epoch the same way from its own YAML, one net and no
    ``Sec_`` keys, whose ``best_model.npz`` then answers 512 val sessions in
    one batch through ``run.recommend.main`` (B3 once, no other kernel),
@@ -244,8 +247,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    run_summary.json the script's keys, its test HR@12 above
    ``IKEA_HR_FLOOR``, smorl's test Div_Reward nonzero; "[ikea]" lines give
    the host seconds, sessions/s and the test HR/NDCG@{1, 6, 12}, Div and
-   Nov rewards. At the end neither jax, the reference package nor pandas
-   may be loaded.
+   Nov rewards.
+15. workflow (ROADMAP A.13a): the experiment workflow through the user's
+   entry points, without pandas: ``run.prepare_synthetic.main`` writes the
+   synthetic experiment (200 items, smorl, 3 epochs); phase 10's sessions
+   (``trainer_experiment``'s 3050 at catalog 70852, seeds 7 and 118) are
+   written with the csv and json modules as session files (train as CSV,
+   val and test as JSON lines, a reward column) and staged by
+   ``run.build_replay_buffer`` (``--eval`` for val and test) into buffers
+   that must equal ``trainer_experiment``'s array for array, and by
+   ``run.build_unpopular_items`` into the train split's unpopular set;
+   then ``run.run_all_experiments_in_dir.main`` sweeps a directory of two
+   YAMLs: the synthetic smorl experiment as written but for
+   ``fused_ce_min_actions: 0`` (below 8192 actions the head takes the dense
+   arm, as in the reference; the line puts B2 and B6 on its path, held in
+   phase 3 at 200 columns), and gru4rec at the RetailRocket width on the
+   staged buffers (1 epoch, 65 steps of 256). The sweep must return 0,
+   move each YAML into its experiment directory beside
+   ``best_model.npz`` and ``test_metrics.json``, and launch exactly what
+   ``trainer_launches`` owes for the two runs (gru4rec: B1, B2, B3, B4;
+   smorl: B2, B3, B4, B6). "[workflow]" lines give the seconds, each run's
+   sessions/s and its launches. At the end neither jax, the reference
+   package nor pandas may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
@@ -740,6 +763,7 @@ def kernels_fused_ce():
         (256, 256, 70912, 70852, "high"),
         (256, 200, 70852, 70852, "high"),  # F not a multiple of 128: slices of 128 and 72
         (256, 64, 10000, 10000, "high"),  # the IKEA point: 10000 output columns
+        (256, 64, 200, 200, "high"),  # prepare_synthetic's 200 items (the workflow's smorl)
     ]:
         g = torch.Generator(device="cuda").manual_seed(A)
         h = torch.randn(B, Fd, device="cuda", generator=g)
@@ -821,8 +845,8 @@ def kernels_fused_ce():
             if lib_call is not None:
                 row["library_call_ms"] = lib_call
             print(f"[kernels] {name} {json.dumps(row)}")
-            if A == IKEA_ACTIONS:
-                rows[f"{name} ikea"] = row
+            if A in (IKEA_ACTIONS, SYNTH_ITEMS):
+                rows[f"{name} {'ikea' if A == IKEA_ACTIONS else 'synth'}"] = row
                 continue
             rows.setdefault({64: name, 256: f"{name} bidir"}.get(Fd, f"{name} F={Fd}"), row)
             if Fd == 64 and A == valid and precision != "high":
@@ -875,6 +899,8 @@ ARGMAX_CASES = [
     (1, 64, 70852, 70852, 3, "high", False),
     (256, 64, 10000, 10000, 3, "high", False),  # the IKEA smorl point
     (256, 64, 10000, 10000, 3, "high", True),
+    (256, 64, 200, 200, 3, "high", False),  # the workflow's smorl, 200 items
+    (256, 64, 200, 200, 3, "high", True),
 ]
 ARGMAX_AM_CASES = [
     (256, 64, 70852, 70852, None, "default", False),  # the sqn fast point
@@ -902,14 +928,15 @@ def kernels_fused_argmax():
     on the integer cases the ids equal everywhere, ties to the lowest id.
     Returns the train points' rows (sqn's B5, smorl's B6 at K = 3: "high",
     "highest", and the action-major forms as "<name> am" in "default"; B6
-    at the IKEA point as "<name> ikea")."""
+    at the IKEA point as "<name> ikea", at the synthetic experiment's 200
+    items as "<name> synth")."""
     rows = {}
     for am, cases in ((False, ARGMAX_CASES), (True, ARGMAX_AM_CASES)):
         for case in cases:
             name, row = argmax_row(*case, am)
             key = f"{name} am" if am else name
-            if case[2] == IKEA_ACTIONS:
-                rows.setdefault(f"{key} ikea", row)
+            if case[2] in (IKEA_ACTIONS, SYNTH_ITEMS):
+                rows.setdefault(f"{key} {'ikea' if case[2] == IKEA_ACTIONS else 'synth'}", row)
                 continue
             rows.setdefault(key, row)
             if case[:4] == (256, 64, 70852, 70852) and case[5] == "highest":
@@ -2615,11 +2642,15 @@ def phase_trainer(smi, profile=False):
         trainer_line(f"gru4rec 2 epochs via the CLI, first-window train loss {first}", gru, smi,
                      launches)
 
-        # -- sqn and smorl through train(cfg, buffers), 1 epoch
+        # -- sqn and smorl through train(cfg, buffers), 1 epoch. These runs
+        # take one eval point an epoch: no check reads a point within an
+        # epoch, and each point that improves writes a compressed best
+        # model (~3.4 s at this catalog)
         def run(family, epochs, sub, yaml=yaml_path, **train_kw):
             cfg = load_experiment_config(yaml)
             cfg.exp_dir = os.path.join(tmp, sub)
             cfg.train.model, cfg.train.epochs, cfg.train.checkpoint_dir = family, epochs, None
+            cfg.train.eval_at = [1.0]
             cfg.experiment.save_pretrained_embeddings = False
             for k, v in train_kw.items():
                 setattr(cfg.train if k != "train_metrics" else cfg.metrics, k, v)
@@ -2673,18 +2704,19 @@ def phase_trainer(smi, profile=False):
         # -- determinism and resume (sqn): a 2-epoch run's first epoch is
         # the 1-epoch run's bit for bit; its second, the resumed run's
         full = run("sqn", 2, "sqn_full")
-        if full.logs[:2] != sqn_leg1.logs:
+        first = len(sqn_leg1.logs)  # epoch 1's eval points
+        if full.logs[:first] != sqn_leg1.logs:
             moved = {k: (a[k], b[k]) for a, b in zip(sqn_leg1.logs, full.logs) for k in a
                      if a[k] != b.get(k)}
             fail(f"two identical sqn runs differ: {moved}")
         resumed = run("sqn", 2, "sqn_resumed", checkpoint_dir=os.path.join(tmp, "ckpt_sqn"),
                       resume=True)
-        same = (resumed.logs == full.logs[2:] and resumed.test_metrics == full.test_metrics
+        same = (resumed.logs == full.logs[first:] and resumed.test_metrics == full.test_metrics
                 and (resumed.best_metric, resumed.best_epoch) == (full.best_metric,
                                                                   full.best_epoch))
         if not same:
             moved = {k: (a[k], b[k]) for a, b in zip(resumed.logs + [resumed.test_metrics],
-                                                    full.logs[2:] + [full.test_metrics])
+                                                    full.logs[first:] + [full.test_metrics])
                      for k in b if a.get(k) != b[k]}
             fail(f"a resumed sqn run differs from the uninterrupted one: {moved}; best "
                  f"{resumed.best_metric} @ {resumed.best_epoch} against {full.best_metric} @ "
@@ -2752,11 +2784,11 @@ def trainer_fast(tmp, yaml_path, run, bufs, n_b, n_val, n_test, smi):
             leg1 = res
 
     full = run("sqn", 2, "sqn_fast_full", yaml=yamls["sqn"])
-    if full.logs[:2] != leg1.logs:
+    if full.logs[:len(leg1.logs)] != leg1.logs:
         fail("two identical fast sqn runs differ")
     resumed = run("sqn", 2, "sqn_fast_resumed", yaml=yamls["sqn"],
                   checkpoint_dir=os.path.join(tmp, "ckpt_sqn_fast"), resume=True)
-    if not (resumed.logs == full.logs[2:] and resumed.test_metrics == full.test_metrics
+    if not (resumed.logs == full.logs[len(leg1.logs):] and resumed.test_metrics == full.test_metrics
             and (resumed.best_metric, resumed.best_epoch) == (full.best_metric, full.best_epoch)):
         fail(f"a resumed fast sqn run differs from the uninterrupted one: best "
              f"{resumed.best_metric} @ {resumed.best_epoch} against {full.best_metric} @ "
@@ -2839,13 +2871,14 @@ def trainer_jsonl(tmp, yaml_path, bufs, n_b, n_val, n_test, smi):
             text = text.replace(f'{key}: "{tmp}/{name.replace("_buf", ".npz")}"',
                                 f'{key}: "{path}"')
         dst.write(text.replace("  epochs: 2\n", "  epochs: 1\n").replace(
+            "  eval_at: [0.5, 1]\n", "  eval_at: [1]\n").replace(
             f'  checkpoint_dir: "{tmp}/ckpt"\n', ""))
     cfg = load_experiment_config(yaml_bf16)
     cfg.exp_dir = sub
-    if (cfg.train.compute_dtype, cfg.train.epochs, cfg.data.train_path) != (
-            "bfloat16", 1, files["train_buf"]):
+    if (cfg.train.compute_dtype, cfg.train.epochs, cfg.train.eval_at, cfg.data.train_path) != (
+            "bfloat16", 1, [1], files["train_buf"]):
         fail(f"the JSON-lines YAML resolves to {cfg.train.compute_dtype}, {cfg.train.epochs} "
-             f"epochs, {cfg.data.train_path}")
+             f"epochs, eval at {cfg.train.eval_at}, {cfg.data.train_path}")
     native.NATIVE_PARSES = 0
     torch.cuda.synchronize()
     reset_counters()
@@ -4252,6 +4285,199 @@ def phase_ikea(smi):
     return paths
 
 
+# -- 15. the experiment workflow: staging scripts and the directory sweep ------
+
+SYNTH_ITEMS = 200  # run/prepare_synthetic.py's NUM_ITEMS
+
+
+def write_sessions(path, items, sids):
+    """Session rows (``session_id``, ``item_id``, ``reward`` 1) as a CSV
+    file or JSON lines, written with the csv and json modules."""
+    import csv
+
+    with open(path, "w", newline="") as fh:
+        if path.endswith(".csv"):
+            out = csv.writer(fh, lineterminator="\n")
+            out.writerow(("session_id", "item_id", "reward"))
+            out.writerows((int(s), int(i), 1) for s, i in zip(sids, items))
+        else:
+            fh.writelines(json.dumps({"session_id": int(s), "item_id": int(i), "reward": 1}) + "\n"
+                          for s, i in zip(sids, items))
+
+
+def same_npz(got_path, want_path):
+    """Whether two ``.npz`` files hold the same keys, dtypes and values."""
+    with np.load(got_path) as got, np.load(want_path) as want:
+        return sorted(got.files) == sorted(want.files) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want.files)
+
+
+def phase_workflow(smi):
+    """The experiment workflow through the user's entry points
+    (``run/{prepare_synthetic,build_replay_buffer,build_unpopular_items,
+    run_all_experiments_in_dir}.py``): (a) the synthetic experiment; (b)
+    phase 10's sessions as a CSV train split and JSON-lines val and test
+    splits, staged into buffers equal to the ones ``trainer_experiment``
+    builds, and the unpopular set of the train split; (c) the directory
+    sweep over (a)'s smorl YAML and a gru4rec YAML at the RetailRocket width
+    on (b)'s buffers. Returns the sweep's launches."""
+    import tempfile
+
+    from ikea_recommender_tpu_torch.core.config import load_experiment_config
+    from ikea_recommender_tpu_torch.data.item_frequency import get_low_frequency_items
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, ReplayBuffer, num_batches
+    from ikea_recommender_tpu_torch.data.split import train_test_split_ids
+    from ikea_recommender_tpu_torch.data.synthetic import synthetic_sessions
+    from ikea_recommender_tpu_torch.run import build_replay_buffer, build_unpopular_items
+    from ikea_recommender_tpu_torch.run import prepare_synthetic
+    from ikea_recommender_tpu_torch.run import run_all_experiments_in_dir as sweep
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as tmp:
+        # (a) the synthetic experiment, as the quick start makes it
+        t0 = time.perf_counter()
+        synth = os.path.join(tmp, "synth")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            prepare_synthetic.main(synth)
+        if sorted(os.listdir(synth)) != ["experiment.yaml", "test.npz", "train.npz",
+                                         "unpopular.json", "val.npz"]:
+            fail(f"prepare_synthetic wrote {sorted(os.listdir(synth))}")
+        print(f"[workflow] prepare_synthetic: {said.getvalue().strip()} "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+        # (b) phase 10's sessions as session files, staged into buffers
+        ref = os.path.join(tmp, "trainer_experiment")
+        os.makedirs(ref)
+        trainer_experiment(ref)
+        t0 = time.perf_counter()
+        items, sids = synthetic_sessions(TRAINER_SESSIONS, TRAINER_A, mean_len=8, seed=7)
+        masks = dict(zip(("train", "val", "test"),
+                         train_test_split_ids(sids, ratio=TRAINER_SPLIT, seed=118)))
+        files = {}
+        for split, mask in masks.items():
+            files[split] = os.path.join(tmp, "sessions", f"{split}.{'csv' if split == 'train' else 'jsonl'}")
+            os.makedirs(os.path.dirname(files[split]), exist_ok=True)
+            write_sessions(files[split], items[mask], sids[mask])
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bufs = os.path.join(tmp, "buffers")
+        staged = {}
+        for split, path in files.items():
+            out = os.path.join(bufs, split)
+            argv = ["-f", path, "-o", out, "--padding-id", str(TRAINER_A),
+                    "--state-len", str(TRAINER_T)] + (["--eval"] if split != "train" else [])
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                build_replay_buffer.main(argv)
+            print(f"[workflow] build_replay_buffer {split}: {said.getvalue().strip()}")
+            staged[split] = os.path.join(
+                out, "replay_buffer.npz" if split == "train" else "eval_buffer.npz")
+            if not same_npz(staged[split], os.path.join(ref, f"{split}.npz")):
+                fail(f"the {split} buffer staged from {os.path.basename(path)} differs from "
+                     f"trainer_experiment's")
+        with contextlib.redirect_stdout(io.StringIO()):
+            build_unpopular_items.main(["-f", files["train"], "-t", bufs])
+        unpop = json.load(open(os.path.join(bufs, "unpopular_items.json")))
+        want = [int(i) for i in get_low_frequency_items(items[masks["train"]], 0.9)]
+        if unpop != want:
+            fail(f"build_unpopular_items gave {len(unpop)} ids, not the train split's {len(want)}")
+        t_stage = time.perf_counter() - t0
+        print(f"[workflow] sessions: {sum(int(m.sum()) for m in masks.values())} rows written "
+              f"(train CSV, val/test JSON lines) in {t_write:.2f} s; buffers and "
+              f"{len(unpop)} unpopular ids staged in {t_stage:.2f} s, each buffer equal to "
+              f"trainer_experiment's, array for array")
+
+        # (c) the sweep: (a)'s smorl YAML, its fused head switched on at 200
+        # items, and gru4rec at the RetailRocket width on (b)'s buffers
+        configs, root = os.path.join(tmp, "configs"), os.path.join(tmp, "experiments")
+        os.makedirs(configs)
+        text = open(os.path.join(synth, "experiment.yaml")).read()
+        if text.count('  model: "smorl"\n') != 1:
+            fail("prepare_synthetic's YAML does not train smorl")
+        with open(os.path.join(configs, "smorl-synth.yaml"), "w") as fh:
+            fh.write(text.replace('  model: "smorl"\n',
+                                  '  model: "smorl"\n  fused_ce_min_actions: 0\n'))
+        with open(os.path.join(configs, "gru4rec-rr.yaml"), "w") as fh:
+            fh.write(f"""exp_class: "workflow"
+exp_name: "gru4rec-rr"
+experiment:
+  seed: 118
+data:
+  train_path: "{staged['train']}"
+  val_path: "{staged['val']}"
+  test_path: "{staged['test']}"
+  num_items: {TRAINER_A}
+train:
+  model: "gru4rec"
+  batch_size: {TRAINER_B}
+  val_batch_size: {EVAL_BATCH}
+  epochs: 1
+  learning_rate: 0.01
+  embedding_size: 64
+  hidden_state_size: 64
+  state_size: {TRAINER_T}
+  fused_ce: true
+  head_precision: "high"
+  best_model_metric: "Val_NDCG@10"
+  eval_at: [1]
+metrics:
+  unpopular_actions_path: "{bufs}/unpopular_items.json"
+  topk_cov: [1, 5, 10, 20]
+  topk_hr_ndcg: [10, 20]
+""")
+        outcomes = []
+        train = sweep.train
+        sweep.train = lambda *a, **k: outcomes.append(train(*a, **k)) or outcomes[-1]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            torch.cuda.synchronize()
+            reset_counters()
+            with contextlib.redirect_stdout(out):
+                rc = sweep.main([configs, "--root", root])
+            torch.cuda.synchronize()
+            launches = counters()
+        finally:
+            sweep.train = train
+        t_sweep = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            print(f"[workflow] sweep: {line}")
+        if rc != 0:
+            fail(f"the sweep exited {rc}")
+        runs = (("gru4rec", "workflow/gru4rec-rr", "gru4rec-rr.yaml", staged["train"],
+                 staged["val"], staged["test"]),
+                ("smorl", "synthetic/smorl-synth", "smorl-synth.yaml",
+                 *(os.path.join(synth, f"{s}.npz") for s in ("train", "val", "test"))))
+        if len(outcomes) != 2 or os.listdir(configs):
+            fail(f"the sweep trained {len(outcomes)} experiments, left {os.listdir(configs)}")
+        want = {name: 0 for name in counters()}
+        for (family, sub, name, train_path, val_path, test_path), res in zip(runs, outcomes):
+            exp = os.path.join(root, sub)
+            for f in (name, "best_model.npz", "test_metrics.json"):
+                if not os.path.exists(os.path.join(exp, f)):
+                    fail(f"the sweep's {sub} holds no {f}: {sorted(os.listdir(exp))}")
+            check_logs(f"workflow {family}", res)
+            epochs = load_experiment_config(os.path.join(exp, name)).train.epochs
+            n_b = num_batches(len(ReplayBuffer(train_path)), TRAINER_B)
+            n_val, n_test = (num_batches(len(EvalBuffer(p)), EVAL_BATCH)
+                             for p in (val_path, test_path))
+            run_want = trainer_launches(family, res, epochs * n_b, n_val, n_test)
+            want = {k: want[k] + run_want[k] for k in want}
+            tm = json.load(open(os.path.join(exp, "test_metrics.json")))
+            print(f"[workflow] {sub}: {family} {epochs} x {n_b} steps, "
+                  f"{res.throughput_sessions_per_sec:.0f} sessions/s of the train loop, best "
+                  f"{res.best_metric:.6f} @ eval point {res.best_epoch}, test HR@10 "
+                  f"{tm['Test_HR@10']:.6f}; launches it owes "
+                  f"{json.dumps({k: v for k, v in run_want.items() if v})}; {smi}")
+        if launches != want:
+            fail(f"the sweep launched {launches}, expected {want}")
+        print(f"[workflow] sweep: rc 0 in {t_sweep:.1f} s; each YAML moved beside its "
+              f"best_model.npz and test_metrics.json; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    print(f"[workflow] phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"workflow": launches}
+
+
 class SimpleOutcome:
     """The parts of a ``TrainOutcome`` that ``trainer_launches`` and
     ``check_logs`` read."""
@@ -4262,6 +4488,7 @@ class SimpleOutcome:
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -4292,6 +4519,7 @@ def main():
     paths.update(phase_mesh_trainer(smi))
     paths.update(phase_retailrocket(smi))
     paths.update(phase_ikea(smi))
+    paths.update(phase_workflow(smi))
     # the card's machine has jax installed: show the port never loaded it,
     # nor pandas (the RetailRocket protocol runs without it)
     loaded = sorted(m for m in sys.modules
@@ -4363,17 +4591,19 @@ def main():
         # the bidir_gru4rec point's figures; the action-major form's at the
         # fast points ("default"; its launches "am_launches"); the fast
         # preset's "default" and the reference preset's "highest"; the IKEA
-        # train point's (A = 10000) and B3's at the IKEA eval batch (5000)
+        # train point's (A = 10000) and B3's at the IKEA eval batch (5000);
+        # B1, B2 and B6 at prepare_synthetic's 200 items (the workflow)
         for tag, key in (("bidir", f"{name} bidir"), ("am", f"{name} am"),
                          ("default", f"{name} default"), ("highest", f"{name} highest"),
                          ("am_highest", f"{name} am highest"), ("ikea", f"{name} ikea"),
-                         ("ikea_eval", f"{name} ikea eval")):
+                         ("ikea_eval", f"{name} ikea eval"), ("synth", f"{name} synth")):
             if key in rows:
                 entry.update({f"{tag}_{k}": rows[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if f"{name} am" in rows:
             entry["am_launches"] = sum(c.get(f"{name} am", 0) for c in paths.values())
         kernels.append(entry)
+    print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

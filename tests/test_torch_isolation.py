@@ -4,8 +4,8 @@ silent move to the CPU.
 - every ``.py`` file of ``ikea_recommender_tpu_torch/`` and ``chip_smoke.py``
   is scanned for imports of jax, jaxlib, flax, optax or ikea_recommender_tpu,
   and the modules that replace pandas code (the analysis, the scaling bench,
-  the RetailRocket protocol, the IKEA rehearsal and its columns path) for
-  pandas too;
+  the RetailRocket protocol, the IKEA rehearsal and its columns path, the
+  session-file columns and the experiment workflow) for pandas too;
 - importing every port module in a fresh interpreter loads no ``jax`` and
   no ``pandas``; importing a subpackage imports none of its modules (no
   kernel builds), and each exports the reference's names but those without
@@ -32,7 +32,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ikea_recommender_tpu"}
 # modules that run without pandas where the reference's need it
 PANDAS_FREE = ("analysis/__init__.py", "analysis/embeddings.py", "analysis/trajectories.py",
                "analysis/visualize.py", "parallel/scaling_bench.py", "run/retailrocket.py",
-               "run/ikea_rehearsal.py", "run/_rehearsal.py", "data/ikea_columns.py")
+               "run/ikea_rehearsal.py", "run/_rehearsal.py", "data/ikea_columns.py",
+               "data/session_columns.py", "run/prepare_synthetic.py",
+               "run/build_replay_buffer.py", "run/build_unpopular_items.py",
+               "run/run_all_experiments_in_dir.py")
 SUBPACKAGES = ("core", "data", "models", "ops", "train", "eval", "run", "utils", "analysis",
                "parallel")
 # the reference's exports that have no counterpart in the port
@@ -89,7 +92,8 @@ def test_importing_the_port_loads_no_jax():
                 "parallel.__init__", "parallel.scaling_bench", "analysis.__init__",
                 "analysis.embeddings", "analysis.trajectories", "analysis.visualize",
                 "run.retailrocket", "run.ikea_rehearsal", "run._rehearsal", "data.ikea_columns",
-                "_exports"):
+                "data.session_columns", "run.prepare_synthetic", "run.build_replay_buffer",
+                "run.build_unpopular_items", "run.run_all_experiments_in_dir", "_exports"):
         assert f"ikea_recommender_tpu_torch.{new}" in modules
     code = (
         "import importlib, sys\n"
@@ -236,6 +240,18 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
         ikea_rehearsal.main(argv)
     with pytest.raises(FileNotFoundError):
         ikea_rehearsal.main(argv + ["--device", "cpu"])
+    # the directory sweep checks the device before it moves any YAML
+    from ikea_recommender_tpu_torch.run import run_all_experiments_in_dir as sweep
+
+    configs, root = tmp_path / "configs", tmp_path / "experiments"
+    configs.mkdir()
+    (configs / "exp.yaml").write_text('exp_name: "e"\ndata:\n  num_items: 9\n')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.main([str(configs), "--root", str(root)])
+    assert os.listdir(configs) == ["exp.yaml"] and not root.exists()
+    # on the CPU it moves the YAML and trains, here failing on the missing buffers
+    assert sweep.main([str(configs), "--root", str(root), "--device", "cpu"]) == 1
+    assert os.listdir(configs) == [] and (root / "default" / "e" / "exp.yaml").exists()
     rows = Batch(**qbatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         batch_to_device_dict(rows)

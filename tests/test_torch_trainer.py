@@ -381,9 +381,18 @@ def test_resume_keeps_an_earlier_best(tmp_path, deterministic):
 # -- 5. the CLI -------------------------------------------------------------------
 
 
-def test_cli_trains_on_prepare_synthetic_output(tmp_path, monkeypatch, capsys):
-    subprocess.run([sys.executable, str(REPO / "scripts" / "prepare_synthetic.py"),
-                    str(tmp_path)], check=True, capture_output=True, timeout=300,
+@pytest.mark.parametrize("stager", ["script", "port"])
+def test_cli_trains_on_prepare_synthetic_output(tmp_path, monkeypatch, capsys, stager):
+    """The port's CLI on the experiment that ``scripts/prepare_synthetic.py``
+    or the port's ``run.prepare_synthetic`` (run with pandas and jax
+    unimportable) writes."""
+    if stager == "script":
+        cmd = [sys.executable, str(REPO / "scripts" / "prepare_synthetic.py"), str(tmp_path)]
+    else:
+        cmd = [sys.executable, "-c", "import sys; sys.modules['pandas'] = sys.modules['jax'] = "
+               "None; from ikea_recommender_tpu_torch.run.prepare_synthetic import main; "
+               f"main({str(tmp_path)!r})"]
+    subprocess.run(cmd, check=True, capture_output=True, timeout=300, cwd=REPO,
                    env=dict(os.environ, JAX_PLATFORMS="cpu"))
     yaml_path = tmp_path / "experiment.yaml"
     text = yaml_path.read_text()
