@@ -17,7 +17,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the paths give it and at longer, wider and padded ones, with the
    kernel's time, the twin's, its bound and one PyTorch call's as a
    yardstick: B3 gru_fwd and B4 gru_bwd (the GRU recurrence and its
-   adjoint, also at the bidir point H = 128 in both directions), B1 fused_ce_fwd and B2 fused_ce_bwd (the softmax CE over the
+   adjoint, also at the bidir point H = 128 in both directions, and at the
+   spot runs' points: (256, 20, 128) in both directions, B3 at its eval
+   batch (512, 20, 128), (64, 10, 64), B4 at (2000, 10, 64)), B1 fused_ce_fwd and B2 fused_ce_bwd (the softmax CE over the
    catalog and its gradients, in "high", "default", "highest" and with a
    NaN-padded catalog, at the gru4rec head width F = 64 and the bidir one
    F = 256, and at F = 200; B2's yardstick is autograd's backward replayed
@@ -212,8 +214,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    rows, sessions and buys; the catalog must be 72293 (``RESULTS.md:152``).
    Then ``run --family gru4rec --epochs 1 --no-train-metrics`` and the
    same for sqn (ROADMAP A.10: B5 once a step) and for smorl (A.10b: B6
-   once a step, ``--div-emb`` the gru4rec run's export; the first 1024
-   batches of the train rows, ``RR_SMORL_STEPS``) on the card at the
+   once a step, ``--div-emb`` the gru4rec run's export), sqn and smorl on
+   the first 1024 batches of the train rows (``RR_PREFIX_STEPS``), on the card at the
    paper point (batch 256, lr 0.01, E = H = 64; ~1.72M train rows), each
    run's launches ``PER_STEP`` per step plus B3 per eval batch (both nets'
    val passes for sqn and smorl), its logs finite, sessions/s and the test
@@ -267,8 +269,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``best_model.npz`` and ``test_metrics.json``, and launch exactly what
    ``trainer_launches`` owes for the two runs (gru4rec: B1, B2, B3, B4;
    smorl: B2, B3, B4, B6). "[workflow]" lines give the seconds, each run's
-   sessions/s and its launches. At the end neither jax, the reference
-   package nor pandas may be loaded.
+   sessions/s and its launches.
+16. spot runs (ROADMAP A.13b): ``run/spot_run_experiments.py``, one config
+   of each of the 16 mirrored experiment classes on the script's
+   synthetic data (RetailRocket flavor: 800 sessions, 500 items, click/buy
+   types, both pad ends; IKEA flavor: 400 sessions, 180 input and 60
+   output tokens, state 10 and 20): (a) ``make_run_copy`` stages the 16
+   run copies into a temporary root; (b) each copy trains 1 epoch in this
+   process through ``run.cli.main(["-f", copy, "--device", "cuda"])`` at
+   its own widths (E = H = 64 or 128, 1 or 2 layers, batch 64, 256 or
+   2000, eval batch clamped to 512): rc 0, a finite ``test_metrics.json``
+   beside the copy, the eval points its ``eval_at`` gives, per-action-type
+   keys where the config names the types, and exactly what
+   ``trainer_launches`` owes: at catalogs 500 and 60 the head takes the
+   dense arm, so B3 and B4 only (per step ``PER_STEP``'s times the GRU
+   layers, B3 per eval batch, layer and direction); (c) ``python -m
+   ikea_recommender_tpu_torch.run.spot_run_experiments`` over
+   ``SPOT_MAIN`` (one copy of each flavor) in a subprocess, staged under
+   the checkout's ``data/spot``: rc 0 and "all 2 spot-runs passed".
+   "[spot]" lines give each copy's seconds, sessions/s of the train loop,
+   best metric and eval point, and launches. At the end neither jax, the
+   reference package nor pandas may be loaded.
 
 The card's name and power limit, as nvidia-smi prints them, come on a line
 of their own; the line before the last is a JSON object listing each
@@ -561,6 +582,11 @@ def kernels_gru_fwd():
         (2000, 10, 64, True, False),  # the eval point: 500 blocks, ~3.8 waves
         (2000, 10, 128, True, True),  # bidir's eval point, both directions
         (5000, 10, 64, True, False),  # the IKEA eval point: 1250 blocks of 4 rows
+        (256, 20, 128, True, False),  # bidir2: two bidirectional layers at state 20
+        (256, 20, 128, True, True),
+        (512, 20, 128, True, False),  # bidir2's spot-run eval batch (512), both directions
+        (512, 20, 128, True, True),
+        (64, 10, 64, True, False),  # the IKEA gru4rec spot run's batch of 64
     ]:
         xw, wh, bh, mask = gru_case(B, T, H, masked)
         y, h = gru_scan(xw, wh, bh, mask, reverse=reverse)
@@ -605,6 +631,10 @@ def kernels_gru_bwd():
         (256, 10, 128, True, True),
         (256, 200, 64, True, True),  # long sequences, reverse direction
         (256, 50, 256, False, False),  # wide: W_h from L2, unmasked
+        (256, 20, 128, True, False),  # bidir2: two bidirectional layers at state 20
+        (256, 20, 128, True, True),
+        (64, 10, 64, True, False),  # the IKEA gru4rec spot run's batch of 64
+        (2000, 10, 64, True, False),  # play_around's train batch of 2000
     ]:
         xw, wh, bh, mask = gru_case(B, T, H, masked)
         g = torch.Generator(device="cuda").manual_seed(T)
@@ -1035,6 +1065,10 @@ def phase_kernels():
             "B3 gru_fwd ikea eval": b3[(5000, 10, 64)],
             "B3 gru_fwd bidir": b3[(256, 10, 128)], "B4 gru_bwd": b4[(256, 10, 64)],
             "B4 gru_bwd bidir": b4[(256, 10, 128)],
+            # the spot runs' fp32 points: bidir2, its eval batch, batch 64, batch 2000
+            "B3 gru_fwd bidir2": b3[(256, 20, 128)], "B4 gru_bwd bidir2": b4[(256, 20, 128)],
+            "B3 gru_fwd bidir2 eval": b3[(512, 20, 128)], "B3 gru_fwd b64": b3[(64, 10, 64)],
+            "B4 gru_bwd b64": b4[(64, 10, 64)], "B4 gru_bwd b2000": b4[(2000, 10, 64)],
             "B3 gru_fwd bf16": bf[("fwd", 256, 10, 64, False)],
             "B3 bf16 serving": bf[("fwd", 512, 10, 64, False)],
             "B3 bf16 eval": bf[("fwd", 2000, 10, 64, False)],
@@ -2461,15 +2495,28 @@ metrics:
     return path
 
 
-def trainer_launches(family, outcome, n_steps, n_val, n_test, train_metrics=True):
+def trainer_launches(family, outcome, n_steps, n_val, n_test, train_metrics=True, dense=False,
+                     layers=1):
     """The counters a run must show: PER_STEP per train step, and B3 once
-    per eval batch (direction): each train-metrics batch, the val passes
-    (the warm-up and every eval point, each net) and the test pass."""
+    per eval batch, layer and direction: each train-metrics batch, the val
+    passes (the warm-up and every eval point, each net) and the test pass.
+    PER_STEP's B3 and B4 are one layer's: ``layers`` GRU layers run them
+    ``layers`` times. ``dense``: the head's dense arm (a catalog under
+    ``FUSED_CE_MIN_ACTIONS``), which launches no B1, B2, B5 or B6."""
     nets = 2 if family.split()[0] in ("sqn", "smorl") else 1
+    dirs = 2 if family.split()[0] == "bidir_gru4rec" else 1
     eval_batches = (n_steps if train_metrics else 0) + n_test
     eval_batches += (1 + nets * len(outcome.logs)) * n_val
-    want = {name: PER_STEP[family].get(name, 0) * n_steps for name in counters()}
-    want["B3 gru_fwd bf16" if family.endswith("bf16") else "B3 gru_fwd"] += eval_batches
+    want = {}
+    for name in counters():
+        per = PER_STEP[family].get(name, 0)
+        if name.startswith(("B3", "B4")):
+            per *= layers
+        elif dense:
+            per = 0
+        want[name] = per * n_steps
+    want["B3 gru_fwd bf16" if family.endswith("bf16") else "B3 gru_fwd"] += (
+        eval_batches * layers * dirs)
     return want
 
 
@@ -3889,10 +3936,10 @@ def phase_mesh_trainer(smi):
 
 RR_INVOCATION = "experiments/RetailRocket-Comparison/rehearsal_r5b"
 RR_CATALOG = 72293  # RESULTS.md:152, the r5b invocation's catalog after the ETL
-# phase 13's smorl run: the first 1024 batches of the train rows (a whole
-# epoch of its ~45 ms steps takes ~320 s, which the script's 1200 s cannot
-# hold beside the other phases)
-RR_SMORL_STEPS = 1024
+# phase 13's sqn and smorl runs: the first 1024 batches of the train rows (a
+# whole epoch of smorl's ~45 ms steps takes ~320 s, and sqn's ~60 s, which
+# the script's 1200 s cannot hold beside the other phases)
+RR_PREFIX_STEPS = 1024
 RR_SCALING_SPECS = ((1, 1), (2, 1), (1, 2))
 RR_SCALING_STEPS = (3, 20)  # warm-up, timed
 
@@ -3996,10 +4043,10 @@ def phase_retailrocket(smi):
         n_b = num_batches(len(np.load(os.path.join(bufs, "replay_buffer.npz"))["action"]), 256)
         n_val, n_test = num_batches(len(val_buf), 2000), num_batches(len(test_buf), 2000)
         div_emb = f"{tmp}/runs/gru4rec_run/embedding_weights.npy"
-        smorl_bufs = f"{tmp}/buffers_prefix"
-        buffer_prefix(bufs, smorl_bufs, RR_SMORL_STEPS * 256)
-        runs = (("gru4rec", bufs, n_b, []), ("sqn", bufs, n_b, []),
-                ("smorl", smorl_bufs, RR_SMORL_STEPS, ["--div-emb", div_emb]))
+        prefix = f"{tmp}/buffers_prefix"
+        buffer_prefix(bufs, prefix, RR_PREFIX_STEPS * 256)
+        runs = (("gru4rec", bufs, n_b, []), ("sqn", prefix, RR_PREFIX_STEPS, []),
+                ("smorl", prefix, RR_PREFIX_STEPS, ["--div-emb", div_emb]))
         for family, run_bufs, steps, extra in runs:
             out = f"{tmp}/runs/{family}_run"
             t0 = time.perf_counter()
@@ -4478,6 +4525,120 @@ metrics:
     return {"workflow": launches}
 
 
+# -- 16. the spot runs of the 16 mirrored experiment classes -------------------
+
+# (c): main as a user runs it, over one copy of each flavor
+SPOT_MAIN = ("experiments/paper/playing/play_around/play_around.yaml",
+             "experiments/IKEA/first_runs/IKEA_GRU_right_tokenizer_smallerBS/"
+             "IKEA_GRU_right_tokenizer_smallerBS.yaml")
+
+
+def phase_spot(smi):
+    """The spot runs (``run/spot_run_experiments.py``): (a) the 16 default
+    configs' run copies staged by ``make_run_copy`` into a temporary root;
+    (b) each copy trained in this process through ``run.cli.main`` on the
+    card, rc 0, a finite ``test_metrics.json`` beside the copy, the dense
+    head arm (catalogs 500 and 60 are under ``FUSED_CE_MIN_ACTIONS``) and
+    exactly the launches ``trainer_launches`` owes; (c) ``main`` in a
+    subprocess over ``SPOT_MAIN``, as a user runs it. Returns (b)'s
+    launches."""
+    import math
+    import tempfile
+
+    from ikea_recommender_tpu_torch.core.config import load_experiment_config
+    from ikea_recommender_tpu_torch.data.replay_buffer import EvalBuffer, ReplayBuffer, num_batches
+    from ikea_recommender_tpu_torch.data.tokenizer import Tokenizer
+    from ikea_recommender_tpu_torch.models.families import model_config_from_train
+    from ikea_recommender_tpu_torch.run import cli
+    from ikea_recommender_tpu_torch.run import spot_run_experiments as spot
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in counters()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spot_") as tmp:
+        # (a) stage the run copies
+        root = os.path.join(tmp, "spot")
+        t0 = time.perf_counter()
+        dsts = [spot.make_run_copy(os.path.join(spot.REPO, src), root) for src in spot.DEFAULTS]
+        staged = sorted(d for d in os.listdir(root) if d != "runs")
+        print(f"[spot] staged {len(dsts)} run copies and the data dirs {staged} in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # (b) each copy through the CLI in this process, its counters reset
+        outcomes = []
+        train = cli.train
+        cli.train = lambda *a, **k: outcomes.append(train(*a, **k)) or outcomes[-1]
+        t_runs = time.perf_counter()
+        try:
+            for i, dst in enumerate(dsts):
+                cfg = load_experiment_config(dst)
+                t_cfg, what = cfg.train, f"{cfg.experiment.exp_class}/{cfg.experiment.exp_name}"
+                if cfg.data.output_tokenizer:  # the trainer's action count
+                    cfg.data.num_actions = len(Tokenizer.from_file(cfg.data.output_tokenizer)) - 1
+                mc = model_config_from_train(t_cfg, cfg.data)
+                if mc.fused_ce:
+                    fail(f"spot {what}: the head took the fused arm at {mc.action_dim} actions")
+                n_b = num_batches(len(ReplayBuffer(cfg.data.train_path)), t_cfg.batch_size)
+                n_val, n_test = (num_batches(len(EvalBuffer(p)), t_cfg.val_batch_size)
+                                 for p in (cfg.data.val_path, cfg.data.test_path))
+                points = t_cfg.epochs * len({int(n_b * p) for p in t_cfg.eval_at} - {0})
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                reset_counters()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(["-f", dst, "--device", "cuda"])
+                torch.cuda.synchronize()
+                launches = counters()
+                secs = time.perf_counter() - t0
+                if rc != 0 or len(outcomes) != i + 1:
+                    fail(f"spot {what}: the CLI exited {rc}")
+                res = outcomes[-1]
+                check_logs(f"spot {what}", res)
+                path = os.path.join(os.path.dirname(dst), "test_metrics.json")
+                tm = json.load(open(path)) if os.path.exists(path) else {}
+                if not tm or not all(math.isfinite(v) for v in tm.values()):
+                    fail(f"spot {what}: test_metrics.json {tm or 'missing'}")
+                if len(res.logs) != points:
+                    fail(f"spot {what}: {len(res.logs)} eval points, expected {points}")
+                if cfg.metrics.action_type_names and not any("[" in k for k in res.logs[-1]):
+                    fail(f"spot {what}: no per-action-type metric logged")
+                want = trainer_launches(t_cfg.model, res, t_cfg.epochs * n_b, n_val, n_test,
+                                        train_metrics=cfg.metrics.train_metrics, dense=True,
+                                        layers=t_cfg.gru_layers)
+                if launches != want:
+                    fail(f"spot {what} launched {launches}, expected {want}")
+                total = {k: total[k] + launches[k] for k in total}
+                print(f"[spot] {what}: {t_cfg.model} x{t_cfg.gru_layers} layer(s), E "
+                      f"{t_cfg.embedding_size} H {t_cfg.hidden_state_size} T {t_cfg.state_size}, "
+                      f"{n_b} steps of {t_cfg.batch_size}, {mc.action_dim} actions (dense); "
+                      f"{secs:.2f} s, {res.throughput_sessions_per_sec:.0f} sessions/s of the "
+                      f"train loop; best {t_cfg.best_model_metric}={res.best_metric:.6f} @ eval "
+                      f"point {res.best_epoch} of {points}; launches "
+                      f"{json.dumps({k: v for k, v in launches.items() if v})}; {smi}")
+        finally:
+            cli.train = train
+        t_runs = time.perf_counter() - t_runs
+
+    # (c) main as a user runs it, one process a copy; its staging under the
+    # checkout's data/spot, as the script's
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "ikea_recommender_tpu_torch.run.spot_run_experiments", *SPOT_MAIN],
+                         cwd=spot.REPO, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    said = res.stdout.splitlines()
+    for line in said:
+        if line.startswith(("===", "best ", "all ", "FAILED", "  experiments/")):
+            print(f"[spot] main: {line}")
+    if res.returncode != 0 or not said or said[-1] != f"all {len(SPOT_MAIN)} spot-runs passed":
+        fail(f"spot_run_experiments exited {res.returncode}: {res.stderr[-2000:]}")
+    print(f"[spot] {len(dsts)} runs in this process {t_runs:.1f} s; main over {len(SPOT_MAIN)} "
+          f"copies in a subprocess {secs:.1f} s; launches of the {len(dsts)} "
+          f"{json.dumps({k: v for k, v in total.items() if v})}")
+    print(f"[spot] phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"spot": total}
+
+
 class SimpleOutcome:
     """The parts of a ``TrainOutcome`` that ``trainer_launches`` and
     ``check_logs`` read."""
@@ -4520,6 +4681,7 @@ def main():
     paths.update(phase_retailrocket(smi))
     paths.update(phase_ikea(smi))
     paths.update(phase_workflow(smi))
+    paths.update(phase_spot(smi))
     # the card's machine has jax installed: show the port never loaded it,
     # nor pandas (the RetailRocket protocol runs without it)
     loaded = sorted(m for m in sys.modules
@@ -4585,18 +4747,22 @@ def main():
                 point = rows[f"B3 bf16 {key}"]
                 entry.update({f"{key}_{k}": point[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        if f"{name} bidir2" in rows:  # (256, 20, 128), reverse
+        if f"{name} bidir2" in rows:  # (256, 20, 128); bf16: reverse
             entry.update({f"bidir2_{k}": rows[f"{name} bidir2"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         # the bidir_gru4rec point's figures; the action-major form's at the
         # fast points ("default"; its launches "am_launches"); the fast
         # preset's "default" and the reference preset's "highest"; the IKEA
         # train point's (A = 10000) and B3's at the IKEA eval batch (5000);
-        # B1, B2 and B6 at prepare_synthetic's 200 items (the workflow)
+        # B1, B2 and B6 at prepare_synthetic's 200 items (the workflow); B3
+        # and B4 at the spot runs' points: bidir2's eval batch (512, 20,
+        # 128), batch 64 (64, 10, 64) and B4 at batch 2000 (2000, 10, 64)
         for tag, key in (("bidir", f"{name} bidir"), ("am", f"{name} am"),
                          ("default", f"{name} default"), ("highest", f"{name} highest"),
                          ("am_highest", f"{name} am highest"), ("ikea", f"{name} ikea"),
-                         ("ikea_eval", f"{name} ikea eval"), ("synth", f"{name} synth")):
+                         ("ikea_eval", f"{name} ikea eval"), ("synth", f"{name} synth"),
+                         ("bidir2_eval", f"{name} bidir2 eval"), ("b64", f"{name} b64"),
+                         ("b2000", f"{name} b2000")):
             if key in rows:
                 entry.update({f"{tag}_{k}": rows[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

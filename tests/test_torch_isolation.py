@@ -35,7 +35,7 @@ PANDAS_FREE = ("analysis/__init__.py", "analysis/embeddings.py", "analysis/traje
                "run/ikea_rehearsal.py", "run/_rehearsal.py", "data/ikea_columns.py",
                "data/session_columns.py", "run/prepare_synthetic.py",
                "run/build_replay_buffer.py", "run/build_unpopular_items.py",
-               "run/run_all_experiments_in_dir.py")
+               "run/run_all_experiments_in_dir.py", "run/spot_run_experiments.py")
 SUBPACKAGES = ("core", "data", "models", "ops", "train", "eval", "run", "utils", "analysis",
                "parallel")
 # the reference's exports that have no counterpart in the port
