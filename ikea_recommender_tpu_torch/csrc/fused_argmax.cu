@@ -22,9 +22,10 @@
 //
 // Precision of the products: "highest" fp32, "high" bf16x3, "default" one
 // bf16 pass, as B1. In "high" and "default" both run on the bf16 tensor
-// cores (mma_tile.cuh's head walk, shared with B1) and take F <= 128 and,
-// for B6, K <= 5; "highest" runs on the CUDA cores (head_tile.cuh: fp32
-// FMAs) and takes any F and K.
+// cores: mma_tile.cuh's head walk (shared with B1) up to F = 128 and, for
+// B6, K = 5 heads, the wide head walk past either; "highest" runs on the
+// CUDA cores (head_tile.cuh: fp32 FMAs). Every route takes any F >= 1 and
+// K >= 1, as the TPU kernels do.
 //
 // What bounds it: at the sqn train point (B=256, F=64, A=70852) B5 reads W
 // once (18.1 MB, 0.0054 ms at 3.35 TB/s) and does 2 B F A = 2.32 GFLOP per
@@ -58,6 +59,16 @@
 //   "default"; scripts/torch_b6_columns.py times the three counts there,
 //   and this choice was the fastest in both. K = 5 at F = 128 in "high"
 //   takes 32 (204 KB).
+// - "high" and "default" past F = 128 or K = 5 (argmax_wide_kernel): the
+//   wide head walk (mma_tile.cuh) at 128 columns a block. Shared memory
+//   holds one F-slice of 128 rows of one head's columns and of a tile of
+//   h (104 KB in "high" at any F and K, two blocks an SM); per tile the C
+//   fragments of a head stay in registers over the slices, then go to the
+//   same epilogue, which adds B6's heads in order into v and reads the
+//   biases from device memory (a (K, 128) copy would grow with K). The
+//   block stages its columns of W again for each tile of 64 rows (see the
+//   walk's note). At the sqn point widened to F = 256 B5 does 2 B F A =
+//   9.29 GFLOP a pass, 0.0282 ms in "high"; B6 at K = 3 three times that.
 // - "highest" (argmax_tile_kernel): the block owns 64 rows x 128 columns
 //   and computes its tile of v in registers (head_tile.cuh's logits tile,
 //   once per head for B6, summed into a second register tile).
@@ -84,8 +95,14 @@ using namespace head_tile;
 using mma_tile::kWalkRows;
 using mma_tile::kWalkThreads;
 
-// B6 on the tensor cores takes K heads up to this.
+// B6 on the head walk takes K heads up to this (the TPU kernel's "K is
+// tiny"), and B5 and B6 F up to mma_tile::kWalkMaxF; past either, the wide
+// head walk.
 constexpr int kMmaMaxHeads = 5;
+
+bool wide_route(int F, int K, int precision) {
+  return precision != 0 && (F > mma_tile::kWalkMaxF || K > kMmaMaxHeads);
+}
 
 // (m, i) wins over (mo, io): the larger value, the lower column on a tie.
 __device__ __forceinline__ void take_better(float& m, int& i, float mo, int io) {
@@ -158,10 +175,13 @@ argmax_tile_kernel(const float* __restrict__ h, const float* __restrict__ w,
 // of rows g and g + 8 of its warp's 16, then per row the (max, lowest
 // column at the max) over the thread's columns, the quad and the two column
 // warps, written to the row's partial of this block.
-template <int COLS, bool WEIGHTED>
+// With GLOBAL_BIAS (the wide walk) B6 reads its biases from device memory
+// as each head comes.
+template <int COLS, bool WEIGHTED, bool GLOBAL_BIAS = false>
 struct ArgmaxEpilogue {
   static constexpr int NI = COLS / 32;
   const float* qw;
+  const float* bias;
   const float* b_s;  // B6: (K, COLS) biases of the block's columns, 0 at >= valid
   float* red_m;      // (2 column halves, kWalkRows rows)
   int* red_i;
@@ -174,7 +194,8 @@ struct ArgmaxEpilogue {
   __device__ __forceinline__ ArgmaxEpilogue(const float* bias, const float* qw_, float* smem,
                                             float* part_max_, int* part_idx_, int B_, int A_,
                                             int K_, int valid_)
-      : qw(qw_), part_max(part_max_), part_idx(part_idx_), B(B_), A(A_), K(K_), valid(valid_) {
+      : qw(qw_), bias(bias), part_max(part_max_), part_idx(part_idx_), B(B_), A(A_), K(K_),
+        valid(valid_) {
     const int tid = threadIdx.x, lane = tid % 32, wc = tid / 32 / 4;
     n0 = blockIdx.x * COLS;
     c0 = COLS / 2 * wc + 2 * (lane % 4);
@@ -183,13 +204,13 @@ struct ArgmaxEpilogue {
     red_i = reinterpret_cast<int*>(red_m + 2 * kWalkRows);
     float* b_w = reinterpret_cast<float*>(red_i + 2 * kWalkRows);
     b_s = b_w;
-    if constexpr (WEIGHTED) {
+    if constexpr (WEIGHTED && !GLOBAL_BIAS) {
       // read after the walk's first barrier
       for (int e = tid; e < K * COLS; e += kWalkThreads) {
         const int col = n0 + e % COLS;
         b_w[e] = col < valid ? bias[(size_t)(e / COLS) * A + col] : 0.0f;
       }
-    } else {
+    } else if constexpr (!WEIGHTED) {
 #pragma unroll
       for (int i = 0; i < NI; ++i)
 #pragma unroll
@@ -213,7 +234,12 @@ struct ArgmaxEpilogue {
         for (int t = 0; t < 2; ++t)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float bk = b_s[k * COLS + c0 + 16 * i + 8 * t + e];
+            const int c = c0 + 16 * i + 8 * t + e;
+            float bk;
+            if constexpr (GLOBAL_BIAS)
+              bk = n0 + c < valid ? bias[(size_t)k * A + n0 + c] : 0.0f;
+            else
+              bk = b_s[k * COLS + c];
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
               float& x = v[i][t][2 * hr + e];
@@ -287,6 +313,42 @@ argmax_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
       h, w, B, F, A, heads, valid, vec_w, vec_h, smem_raw, epi);
 }
 
+// "high" and "default" past the head walk's F or K: the wide head walk.
+template <int P, bool WEIGHTED, bool AM>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+argmax_wide_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                   const float* __restrict__ bias, const float* __restrict__ qw,
+                   float* __restrict__ part_max, int* __restrict__ part_idx, int B, int F, int A,
+                   int K, int valid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using Epi = ArgmaxEpilogue<kTileCols, WEIGHTED, true>;
+  const int heads = WEIGHTED ? K : 1;
+  Epi epi(bias, qw, reinterpret_cast<float*>(smem_raw + mma_tile::wide_walk_smem(P, kTileCols)),
+          part_max, part_idx, B, A, heads, valid);
+  mma_tile::head_walk_wide<P, kTileCols, Epi, AM>(h, w, B, F, A, heads, valid, smem_raw, epi);
+}
+
+template <int P, bool AM>
+cudaError_t launch_wide(const float* h, const float* w, const float* b, const float* qw,
+                        float* part_max, int* part_idx, int B, int F, int A, int K, int valid,
+                        cudaStream_t st) {
+  static size_t allowed[2][mma_tile::kMaxDevices] = {};
+  const size_t smem = mma_tile::wide_walk_smem(P, kTileCols) + 8 * 2 * kWalkRows;
+  const bool weighted = qw != nullptr;
+  const void* kernel = weighted ? (const void*)argmax_wide_kernel<P, true, AM>
+                                : (const void*)argmax_wide_kernel<P, false, AM>;
+  cudaError_t err = mma_tile::allow_smem(kernel, smem, allowed[weighted]);
+  if (err != cudaSuccess) return err;
+  const int grid = (A + kTileCols - 1) / kTileCols;
+  if (weighted)
+    argmax_wide_kernel<P, true, AM><<<grid, kWalkThreads, smem, st>>>(h, w, b, qw, part_max,
+                                                                      part_idx, B, F, A, K, valid);
+  else
+    argmax_wide_kernel<P, false, AM><<<grid, kWalkThreads, smem, st>>>(
+        h, w, b, qw, part_max, part_idx, B, F, A, 1, valid);
+  return cudaGetLastError();
+}
+
 // Columns per block of B6 in "high" and "default": the widest of 128, 64
 // and 32 at which two blocks fit on an SM (233472 bytes of shared memory,
 // 1 KB of it reserved per block), else the widest at which one block fits;
@@ -302,9 +364,12 @@ int wargmax_cols(int F, int K, int P) {
   return 0;
 }
 
-// Columns per block of a launch: kTileCols in "highest" and for B5.
+// Columns per block of a launch: kTileCols in "highest", for B5 and on the
+// wide head walk.
 int block_cols(int F, int K, bool weighted, int precision) {
-  return precision == 0 || !weighted ? kTileCols : wargmax_cols(F, K, precision);
+  return precision == 0 || !weighted || wide_route(F, K, precision)
+             ? kTileCols
+             : wargmax_cols(F, K, precision);
 }
 
 // One warp per row merges the row's nblk partials.
@@ -378,6 +443,10 @@ template <bool AM>
 cudaError_t launch_layout(const float* h, const float* w, const float* b, const float* qw,
                           float* part_max, int* part_idx, int B, int F, int A, int K, int valid,
                           int precision, int cols, cudaStream_t st) {
+  if (wide_route(F, K, precision))
+    return precision == 1
+               ? launch_wide<1, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, st)
+               : launch_wide<2, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, st);
   if (precision == 1)
     return launch_mma<1, AM>(h, w, b, qw, part_max, part_idx, B, F, A, K, valid, cols, st);
   if (precision == 2)
@@ -400,15 +469,14 @@ extern "C" long long fused_argmax_scratch(int B, int F, int A, int K, int weight
 
 // Launches B5 (qw == NULL, K == 1) or B6 on `stream`: idx (B) int64 and mx
 // (B) fp32 of the argmax described above, on a canonical W (action_major 0)
-// or an action-major one (1). In "high" and "default" F may be at most 128
-// and K at most 5. Returns cudaGetLastError() (0 on success).
+// or an action-major one (1), at any F and K. Returns cudaGetLastError() (0
+// on success).
 extern "C" int fused_argmax(const float* h, const float* w, const float* b, const float* qw,
                             long long* idx, float* mx, float* part_max, int* part_idx, int B,
                             int F, int A, int K, int valid, int precision, int action_major,
                             void* stream) {
   if (B < 1 || F < 1 || A < 1 || K < 1 || (qw == nullptr && K != 1) || valid < 0 ||
-      valid > A || precision < 0 || precision > 2 || action_major < 0 || action_major > 1 ||
-      (precision != 0 && (F > mma_tile::kWalkMaxF || K > kMmaMaxHeads)))
+      valid > A || precision < 0 || precision > 2 || action_major < 0 || action_major > 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = block_cols(F, K, qw != nullptr, precision);

@@ -19,9 +19,11 @@
 // "highest" both run them on the CUDA cores as fp32 FMAs (B1 on
 // head_tile.cuh). In "high" and "default" both run them on the bf16 tensor
 // cores (mma_tile.cuh: mma.sync.m16n8k16 from ldmatrix, each operand split
-// once as it is staged) and take F <= 256; B2 takes F <= 256 in "highest"
-// too, B1 any F there. 256 = 2 H at hidden 128, bidir_gru4rec's widest head
-// in the repo's configs.
+// once as it is staged). Every precision takes any F >= 1, as the TPU
+// kernels do: up to F = 256 (2 H at hidden 128, bidir_gru4rec's widest head
+// in the repo's configs) the kernels below keep the whole padded F of their
+// operands in shared memory; past it B1 takes the wide head walk and B2 its
+// wide kernels, which go over F in slices of 128.
 //
 // What bounds it: at the train point (B=256, F=64, A=70852) B1 reads W once
 // (18.1 MB) and does 2.32 GFLOP per pass, B2 reads W and writes dW (36 MB)
@@ -49,6 +51,12 @@
 //   fit beside a tile of h's: the block owns 64 columns, 206 KB of shared
 //   memory at F = 256 in "high", one block an SM (the walk stages h in
 //   slices of 128 floats a row at any F).
+// - F > 256 in "high" and "default" (ce_fwd_wide_kernel): the wide head
+//   walk (mma_tile.cuh) at 128 columns a block, one F-slice of 128 rows of
+//   W's columns and of a tile of h in shared memory (104 KB in "high"),
+//   each tile's C fragments in registers over the slices, the same
+//   epilogue. At bidir_gru4rec's F = 512 (hidden 256) B1 does 2 B F A =
+//   18.6 GFLOP a pass: 0.0563 ms in "high".
 // - "highest" (ce_fwd_kernel): the block owns 128 columns x 64 rows and
 //   computes its logits tile in registers (head_tile.cuh: a 4 x 8 tile per
 //   thread, K in chunks of 16 through shared memory).
@@ -91,6 +99,23 @@
 //   loaded while the chunk before it is computed, as the staging buffer
 //   would not fit. B = 256 takes four launches, each reading W and adding
 //   into dW and db.
+// - F > 256, every precision (ce_bwd_wide_mma_kernel in "high" and
+//   "default", ce_bwd_wide_fp32_kernel in "highest"): nothing of size F
+//   stays in shared memory. A launch takes up to kWideRows rows; per chunk
+//   (1) each 64-row tile's logits over F in slices of 128 (a slice of the
+//   tile of h and of W's chunk staged through registers, split into planes
+//   or kept in fp32), its dl into shared memory for all the launch's rows
+//   (bf16 planes, or fp32), db in a fixed order; (2) per slice of F, W's
+//   slice staged once and each tile's slice of h again: dW of the slice
+//   summed over the tiles in registers and written once (added to earlier
+//   launches'), and dh of the tile's rows at the slice, dl W^T, into this
+//   block's (B, F) part in device memory, which the block alone touches,
+//   always through the same thread: written at its first chunk, added to
+//   after. ce_dh_sum_kernel then sums the parts in block order, so dh, dW
+//   and db are the same from run to run. At bidir_gru4rec's F = 512 B2 does
+//   three (256, 512, 70852) products, 0.169 ms in "high"; the parts'
+//   read-modify-writes, (chunks - 1) x 2 x B F floats a block, are what the
+//   old route's shared-memory dh saved.
 
 #include <cuda_runtime.h>
 
@@ -250,10 +275,13 @@ struct CeEpilogue {
   }
 };
 
-// Columns a block of B1 owns: 128, and 64 past the walk's kWalkMaxF, where
-// W's planes of 128 columns would not fit beside h's.
+// Columns a block of B1 owns: 128, and 64 past the walk's kWalkMaxF up to
+// kWalkNarrowMaxF, where W's planes of 128 columns would not fit beside
+// h's; 128 again on the wide head walk past kWalkNarrowMaxF.
 __host__ __device__ inline int fwd_cols(int F, int precision) {
-  return precision != 0 && F > mma_tile::kWalkMaxF ? 64 : kTileCols;
+  return precision != 0 && F > mma_tile::kWalkMaxF && F <= mma_tile::kWalkNarrowMaxF
+             ? 64
+             : kTileCols;
 }
 
 // Bytes of shared memory of ce_fwd_mma_kernel: the walk's and the two
@@ -293,10 +321,39 @@ cudaError_t launch_fwd_mma(const float* h, const float* w, const float* b,
   return cudaGetLastError();
 }
 
+// Past kWalkNarrowMaxF: the wide head walk (mma_tile.cuh), 128 columns a
+// block.
+template <int P>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+ce_fwd_wide_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                   const float* __restrict__ bias, const long long* __restrict__ labels,
+                   float* __restrict__ part, int B, int F, int A, int valid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CeEpilogue<kTileCols> epi(
+      bias, labels, reinterpret_cast<float*>(smem_raw + mma_tile::wide_walk_smem(P, kTileCols)),
+      part, B, A, valid);
+  mma_tile::head_walk_wide<P, kTileCols>(h, w, B, F, A, 1, valid, smem_raw, epi);
+}
+
+template <int P>
+cudaError_t launch_fwd_wide(const float* h, const float* w, const float* b,
+                            const long long* labels, float* part, int B, int F, int A, int valid,
+                            cudaStream_t st) {
+  static size_t allowed[kMaxDevices] = {};
+  const size_t smem = mma_tile::wide_walk_smem(P, kTileCols) + 4 * 3 * 2 * kWalkRows;
+  cudaError_t err = allow_smem((const void*)ce_fwd_wide_kernel<P>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  ce_fwd_wide_kernel<P><<<(A + kTileCols - 1) / kTileCols, kWalkThreads, smem, st>>>(
+      h, w, b, labels, part, B, F, A, valid);
+  return cudaGetLastError();
+}
+
 template <int P>
 cudaError_t launch_fwd_mma(const float* h, const float* w, const float* b,
                            const long long* labels, float* part, int B, int F, int A, int valid,
                            cudaStream_t st) {
+  if (F > mma_tile::kWalkNarrowMaxF)
+    return launch_fwd_wide<P>(h, w, b, labels, part, B, F, A, valid, st);
   if (fwd_cols(F, P) == 64)
     return launch_fwd_mma<P, 64>(h, w, b, labels, part, B, F, A, valid, st);
   return launch_fwd_mma<P, kTileCols>(h, w, b, labels, part, B, F, A, valid, st);
@@ -338,9 +395,10 @@ ce_merge_kernel(const float* __restrict__ part, float* __restrict__ lse,
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdRows = 32, kBwdCols = 64;
-// F B2 takes in every precision: "highest" keeps W's chunk and its dW at
-// all of F in shared memory (170 KB at F = 256), the tensor cores a tile of
-// h's planes and its dh accumulator (ce_bwd_mma_sliced_kernel, 223 KB).
+// F up to which B2 keeps all of F in shared memory, in every precision:
+// "highest" W's chunk and its dW (170 KB at F = 256), the tensor cores a
+// tile of h's planes and its dh accumulator (ce_bwd_mma_sliced_kernel,
+// 223 KB). Past it the wide kernels.
 constexpr int kBwdMaxF = 256;
 // F up to which a warp's registers hold dW of the chunk for all of F
 // (ce_bwd_mma_kernel); past it the sliced kernel.
@@ -652,17 +710,15 @@ __device__ __forceinline__ void dw_tile(float (&dwa)[4][2][4], const mma_tile::P
   fold<P>(dwa, dwx);
 }
 
-// dh += dl W^T over the chunk's columns at rows r0 + 16 wr.. and f blocks
-// fb0 + wc + 2 j, into the accumulator (row stride ldd), each entry owned
-// by one thread.
+// dl W^T over the chunk's columns at the tile's rows 16 wr.. and f blocks
+// fb0 + wc + 2 j (those < nfb; the rest 0), into dha; "high"'s cross
+// passes apart, added once.
 template <int P>
-__device__ __forceinline__ void dh_tile(float* dh_s, int ldd, const mma_tile::Planes& ls,
-                                        const mma_tile::Planes& ws, int r0, int rows, int fb0,
-                                        int nfb, int fp) {
+__device__ __forceinline__ void dh_frag(float (&dha)[4][2][4], const mma_tile::Planes& ls,
+                                        const mma_tile::Planes& ws, int fb0, int nfb) {
   using namespace mma_tile;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
-  float dha[4][2][4] = {}, dhx[4][2][4] = {};
+  const int warp = threadIdx.x / 32, wr = warp % 4, wc = warp / 4;
+  float dhx[4][2][4] = {};
 #pragma unroll
   for (int k0 = 0; k0 < kBwdCols; k0 += 16) {
     Frag a;
@@ -678,6 +734,19 @@ __device__ __forceinline__ void dh_tile(float* dh_s, int ldd, const mma_tile::Pl
     }
   }
   fold<P>(dha, dhx);
+}
+
+// dh += dl W^T over the chunk's columns at rows r0 + 16 wr.. and f blocks
+// fb0 + wc + 2 j, into the accumulator (row stride ldd), each entry owned
+// by one thread.
+template <int P>
+__device__ __forceinline__ void dh_tile(float* dh_s, int ldd, const mma_tile::Planes& ls,
+                                        const mma_tile::Planes& ws, int r0, int rows, int fb0,
+                                        int nfb, int fp) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+  float dha[4][2][4] = {};
+  dh_frag<P>(dha, ls, ws, fb0, nfb);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1126,6 +1195,328 @@ ce_bwd_mma_sliced_kernel(const float* __restrict__ h, const float* __restrict__ 
     out[(size_t)g0 * F + i] = dh_s[i / F * ldd + i % F];
 }
 
+// ---------------------------------------------------------------------------
+// B2 past kBwdMaxF: F in slices, dh parts in device memory
+// ---------------------------------------------------------------------------
+
+constexpr int kWideSlice = 128;  // F a slice: the 8 f blocks of a warp's dW fragments
+constexpr int kWideRows = 256;   // rows a launch at most: their dl of a chunk in shared memory
+
+__host__ __device__ inline int clamp_cols(int valid, int n0) {
+  return valid - n0 < 0 ? 0 : (valid - n0 < kBwdCols ? valid - n0 : kBwdCols);
+}
+
+// Bytes of shared memory of the wide kernels for `rows` rows: a slice of a
+// tile of h, a slice of W's chunk, dl of the rows (padded to whole tiles);
+// "high" and "default" as bf16 planes with db per warp row and per chunk,
+// "highest" (P == 0) in fp32 with rows padded by one float and db per
+// chunk.
+__host__ __device__ inline size_t bwd_wide_smem(int P, int rows) {
+  const size_t rows_pad = (rows + kMmaRows - 1) / kMmaRows * kMmaRows;
+  if (P == 0)
+    return 4 * ((size_t)kMmaRows * (kWideSlice + 1) + (size_t)(kWideSlice + rows_pad) *
+                (kBwdCols + 1) + kBwdCols);
+  const size_t planes = P == 1 ? 2 : 1;
+  return 2 * planes * ((size_t)kMmaRows * (kWideSlice + 8) + (kWideSlice + rows_pad) * kMmaLd) +
+         4 * 5 * kBwdCols;
+}
+
+// dh of the tile's rows row0.. (nr of them) at the slice f0.. (nfb f blocks),
+// dl W^T over the chunk's columns, into this block's part of dh (row stride
+// F) in device memory: written at the block's first chunk, added to after.
+// An entry is always the same thread's. The part's old entries are loaded
+// all at once, in flight during the products.
+template <int P>
+__device__ __forceinline__ void dh_part_tile(float* __restrict__ part, int F, bool first,
+                                             const mma_tile::Planes& ls,
+                                             const mma_tile::Planes& ws, int row0, int nr, int f0,
+                                             int nfb) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4, wr = warp % 4, wc = warp / 4;
+  // the thread's entry (j, hr, t, e): row 16 wr + g + 8 hr, f below
+  auto at = [&](int j, int hr, int t, int e, float*& x) {
+    const int r = 16 * wr + g + 8 * hr, f = f0 + 16 * (wc + 2 * j) + 8 * t + 2 * q + e;
+    x = part + (size_t)(row0 + r) * F + f;
+    return r < nr && f < F;
+  };
+  float prev[4][2][2][2] = {};
+  if (!first) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float* x;
+            if (at(j, hr, t, e, x)) prev[j][hr][t][e] = *x;
+          }
+  }
+  float dha[4][2][4] = {};
+  dh_frag<P>(dha, ls, ws, 0, nfb);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* x;
+          if (at(j, hr, t, e, x)) *x = prev[j][hr][t][e] + dha[j][t][2 * hr + e];
+        }
+}
+
+// "high" and "default" past kBwdMaxF (the file's header): rows g0..g1 of h
+// (at most kWideRows), chunks strided over the blocks.
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+ce_bwd_wide_mma_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                       const float* __restrict__ bias, const long long* __restrict__ labels,
+                       const float* __restrict__ lse, const float* __restrict__ ct,
+                       float* __restrict__ dw, float* __restrict__ db, float* __restrict__ dh_part,
+                       int B, int F, int A, int valid, int g0, int g1, int accumulate) {
+  using namespace mma_tile;
+  constexpr bool LO = P == 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = g1 - g0, n_tiles = (rows + kMmaRows - 1) / kMmaRows;
+  unsigned char* p = smem_raw;
+  auto planes = [&](int n_rows, int ld) {
+    Planes s{reinterpret_cast<bf16*>(p), nullptr, ld};
+    p += 2 * (size_t)n_rows * ld;
+    if (LO) {
+      s.lo = reinterpret_cast<bf16*>(p);
+      p += 2 * (size_t)n_rows * ld;
+    }
+    return s;
+  };
+  const Planes hs = planes(kMmaRows, kWideSlice + 8);   // a slice of a tile of h (64, 128)
+  const Planes ws = planes(kWideSlice, kMmaLd);         // a slice of W's chunk (128, 64)
+  const Planes ls = planes(n_tiles * kMmaRows, kMmaLd);  // dl of the launch's rows (.., 64)
+  float* db_part = reinterpret_cast<float*>(p);          // (4, kBwdCols)
+  float* db_s = db_part + 4 * kBwdCols;                  // (kBwdCols)
+  auto tile_dl = [&](int t) {
+    const size_t off = (size_t)t * kMmaRows * kMmaLd;
+    return Planes{ls.hi + off, LO ? ls.lo + off : nullptr, kMmaLd};
+  };
+
+  const int tid = threadIdx.x;
+  const int n_chunks = (A + kBwdCols - 1) / kBwdCols;
+  float* part = dh_part + (size_t)blockIdx.x * B * F;
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int n0 = chunk * kBwdCols, ncols = clamp_cols(valid, n0);
+    const bool first = chunk == (int)blockIdx.x;
+    const float* w_chunk = w + n0;
+    float bcol[2][2][2];
+    bias_cols(bcol, bias, n0, valid);
+
+    // (1) each tile's logits over F in slices, then its dl and db
+    for (int t = 0; t < n_tiles; ++t) {
+      const int r0 = t * kMmaRows, nr = rows - r0 < kMmaRows ? rows - r0 : kMmaRows;
+      float s[2][2][4] = {};
+      for (int f0 = 0; f0 < F; f0 += kWideSlice) {
+        const int sw = F - f0 < kWideSlice ? F - f0 : kWideSlice, swp = (sw + 15) / 16 * 16;
+        __syncthreads();  // the planes' readers are done
+        stage_rows<P, kThreads>(hs, h + (size_t)(g0 + r0) * F + f0, F, nr, sw, kMmaRows, swp);
+        stage_rows<P, kThreads>(ws, w_chunk + (size_t)f0 * A, A, sw, ncols, swp, kBwdCols);
+        __syncthreads();
+        logits_mma<P>(s, hs, ws, 0, swp);
+      }
+      dl_tile<P>(s, bcol, tile_dl(t), db_part, lse, ct, labels, g0, r0, rows, n0, valid);
+      __syncthreads();  // the tile's dl planes and db parts are complete
+      if (tid < kBwdCols) db_s[tid] = (t == 0 ? 0.0f : db_s[tid]) + db_rows(db_part, tid);
+    }
+    if (tid < kBwdCols && n0 + tid < A) {
+      const int col = n0 + tid;
+      const float v = col < valid ? db_s[tid] : 0.0f;
+      db[col] = accumulate ? db[col] + v : v;
+    }
+
+    // (2) per slice of F: dW over the tiles in registers, each tile's dh
+    for (int f0 = 0; f0 < F; f0 += kWideSlice) {
+      const int sw = F - f0 < kWideSlice ? F - f0 : kWideSlice, swp = (sw + 15) / 16 * 16;
+      float prev[4][2][2][2] = {};
+      if (accumulate) load_dw(prev, dw, f0 / 16, F, A, n0);
+      float dwa[4][2][4] = {};
+      for (int t = 0; t < n_tiles; ++t) {
+        const int r0 = t * kMmaRows, nr = rows - r0 < kMmaRows ? rows - r0 : kMmaRows;
+        __syncthreads();  // the planes' readers are done
+        stage_rows<P, kThreads>(hs, h + (size_t)(g0 + r0) * F + f0, F, nr, sw, kMmaRows, swp);
+        if (t == 0)
+          stage_rows<P, kThreads>(ws, w_chunk + (size_t)f0 * A, A, sw, ncols, swp, kBwdCols);
+        __syncthreads();
+        dw_tile<P>(dwa, tile_dl(t), hs, 0, 0, swp / 16);
+        dh_part_tile<P>(part, F, first, tile_dl(t), ws, g0 + r0, nr, f0, swp / 16);
+      }
+      store_dw(dw, dwa, prev, f0 / 16, F, A, n0, valid, accumulate);
+    }
+  }
+}
+
+// "highest" past kBwdMaxF: the wide kernel's order with fp32 tiles and
+// FMAs on the CUDA cores. Thread (tx, ty) = (tid % 16, tid / 16) holds the
+// logits at rows ty + 16 i, columns tx + 16 j; dW at f = ty + 16 i (i < 8)
+// of the slice, columns tx + 16 j; dh at rows ty + 16 i, f = tx + 16 j
+// (j < 8) of the slice.
+__global__ void __launch_bounds__(kThreads, 1)
+ce_bwd_wide_fp32_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                        const float* __restrict__ bias, const long long* __restrict__ labels,
+                        const float* __restrict__ lse, const float* __restrict__ ct,
+                        float* __restrict__ dw, float* __restrict__ db,
+                        float* __restrict__ dh_part, int B, int F, int A, int valid, int g0,
+                        int g1, int accumulate) {
+  constexpr int HP = kWideSlice + 1, WP = kBwdCols + 1;
+  extern __shared__ float smem[];
+  const int rows = g1 - g0, n_tiles = (rows + kMmaRows - 1) / kMmaRows;
+  float* h_s = smem;                      // (kMmaRows, HP) a slice of a tile of h
+  float* w_s = h_s + kMmaRows * HP;       // (kWideSlice, WP) a slice of W's chunk
+  float* dl = w_s + kWideSlice * WP;      // (n_tiles kMmaRows, WP) dl of the launch's rows
+  float* db_s = dl + (size_t)n_tiles * kMmaRows * WP;  // (kBwdCols)
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n_chunks = (A + kBwdCols - 1) / kBwdCols;
+  float* part = dh_part + (size_t)blockIdx.x * B * F;
+  auto stage_h = [&](int r0, int nr, int f0, int sw) {
+    for (int e = tid; e < kMmaRows * kWideSlice; e += kThreads) {
+      const int r = e / kWideSlice, k = e % kWideSlice;
+      h_s[r * HP + k] = r < nr && k < sw ? h[(size_t)(g0 + r0 + r) * F + f0 + k] : 0.0f;
+    }
+  };
+  auto stage_w = [&](int f0, int sw, int n0) {
+    for (int e = tid; e < kWideSlice * kBwdCols; e += kThreads) {
+      const int k = e / kBwdCols, c = e % kBwdCols;
+      w_s[k * WP + c] = k < sw && n0 + c < valid ? w[(size_t)(f0 + k) * A + n0 + c] : 0.0f;
+    }
+  };
+
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int n0 = chunk * kBwdCols;
+    const bool first = chunk == (int)blockIdx.x;
+
+    // (1) each tile's logits over F in slices, then its dl and db
+    for (int t = 0; t < n_tiles; ++t) {
+      const int r0 = t * kMmaRows, nr = rows - r0 < kMmaRows ? rows - r0 : kMmaRows;
+      float s[4][4] = {};
+      for (int f0 = 0; f0 < F; f0 += kWideSlice) {
+        const int sw = F - f0 < kWideSlice ? F - f0 : kWideSlice;
+        __syncthreads();
+        stage_h(r0, nr, f0, sw);
+        stage_w(f0, sw, n0);
+        __syncthreads();
+        for (int k = 0; k < sw; ++k) {
+          float a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = h_s[(ty + 16 * i) * HP + k];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = w_s[k * WP + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, row = g0 + r0 + r;
+        const bool live = r < nr;
+        const float row_lse = live ? lse[row] : 0.0f;
+        const float row_ct = live ? ct[row] : 0.0f;
+        const long long lbl = live ? labels[row] : -1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, col = n0 + c;
+          float d = 0.0f;
+          if (live && col < valid) {
+            const float pr = expf(s[i][j] + bias[col] - row_lse);
+            d = (pr - (col == lbl ? 1.0f : 0.0f)) * row_ct;
+          }
+          dl[(r0 + r) * WP + c] = d;
+        }
+      }
+      __syncthreads();  // the tile's dl is complete
+      if (tid < kBwdCols) {
+        float a = 0.0f;
+        for (int r = 0; r < kMmaRows; ++r) a += dl[(r0 + r) * WP + tid];
+        db_s[tid] = (t == 0 ? 0.0f : db_s[tid]) + a;
+      }
+    }
+    if (tid < kBwdCols && n0 + tid < A) {
+      const int col = n0 + tid;
+      const float v = col < valid ? db_s[tid] : 0.0f;
+      db[col] = accumulate ? db[col] + v : v;
+    }
+
+    // (2) per slice of F: dW over the tiles in registers, each tile's dh
+    for (int f0 = 0; f0 < F; f0 += kWideSlice) {
+      const int sw = F - f0 < kWideSlice ? F - f0 : kWideSlice;
+      float dwa[8][4] = {};
+      for (int t = 0; t < n_tiles; ++t) {
+        const int r0 = t * kMmaRows, nr = rows - r0 < kMmaRows ? rows - r0 : kMmaRows;
+        __syncthreads();
+        stage_h(r0, nr, f0, sw);
+        if (t == 0) stage_w(f0, sw, n0);
+        __syncthreads();
+        for (int r = 0; r < kMmaRows; ++r) {
+          float hv[8], dv[4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) hv[i] = h_s[r * HP + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dv[j] = dl[(r0 + r) * WP + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) dwa[i][j] = fmaf(hv[i], dv[j], dwa[i][j]);
+        }
+        float prev[4][8] = {};  // the part's old entries, in flight during the products
+        if (!first) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int r = ty + 16 * i, f = f0 + tx + 16 * j;
+              if (r < nr && f < F) prev[i][j] = part[(size_t)(g0 + r0 + r) * F + f];
+            }
+        }
+        float dha[4][8] = {};
+        for (int c = 0; c < kBwdCols; ++c) {
+          float dv[4], wv[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dv[i] = dl[(r0 + ty + 16 * i) * WP + c];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) wv[j] = w_s[(tx + 16 * j) * WP + c];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) dha[i][j] = fmaf(dv[i], wv[j], dha[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int f = f0 + tx + 16 * j;
+            if (r < nr && f < F) part[(size_t)(g0 + r0 + r) * F + f] = prev[i][j] + dha[i][j];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int f = f0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n0 + tx + 16 * j;
+          if (f < F && col < A) {
+            const float v = col < valid ? dwa[i][j] : 0.0f;
+            float* out = dw + (size_t)f * A + col;
+            *out = accumulate ? *out + v : v;
+          }
+        }
+      }
+    }
+  }
+}
+
 int bwd_blocks(int A) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -1158,21 +1549,39 @@ int bwd_group_rows(int B, int F) {
 
 // "highest" (P == 0) runs ce_bwd_kernel on the CUDA cores, "high" and
 // "default" ce_bwd_mma_kernel (or past kBwdSliceF ce_bwd_mma_sliced_kernel)
-// on the tensor cores.
+// on the tensor cores; past kBwdMaxF ce_bwd_wide_fp32_kernel and
+// ce_bwd_wide_mma_kernel.
 template <int P>
 cudaError_t launch_bwd(const float* h, const float* w, const float* b, const long long* labels,
                        const float* lse, const float* ct, float* dw, float* db, float* dh,
                        float* dh_part, int B, int F, int A, int valid, cudaStream_t st) {
   static size_t allowed[kMaxDevices] = {};  // per instantiation: one kernel
   static size_t allowed_sliced[kMaxDevices] = {};
+  static size_t allowed_wide[kMaxDevices] = {};
   cudaError_t err = cudaSuccess;
   const int nblk = bwd_blocks(A);
-  const int rows = P == 0 ? bwd_group_rows(B, F) : bwd_mma_group_rows(B, F, P);
+  const bool wide = F > kBwdMaxF;
+  const int rows = wide            ? (B < kWideRows ? B : kWideRows)
+                   : P == 0        ? bwd_group_rows(B, F)
+                                   : bwd_mma_group_rows(B, F, P);
   if (rows < 1) return cudaErrorInvalidValue;
   const int vec = A % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   for (int g0 = 0; g0 < B; g0 += rows) {
     const int g1 = g0 + rows < B ? g0 + rows : B;
-    if constexpr (P == 0) {
+    if (wide) {
+      const size_t smem = bwd_wide_smem(P, g1 - g0);
+      if constexpr (P == 0) {
+        err = allow_smem((const void*)ce_bwd_wide_fp32_kernel, smem, allowed_wide);
+        if (err != cudaSuccess) return err;
+        ce_bwd_wide_fp32_kernel<<<nblk, kThreads, smem, st>>>(
+            h, w, b, labels, lse, ct, dw, db, dh_part, B, F, A, valid, g0, g1, g0 > 0);
+      } else {
+        err = allow_smem((const void*)ce_bwd_wide_mma_kernel<P>, smem, allowed_wide);
+        if (err != cudaSuccess) return err;
+        ce_bwd_wide_mma_kernel<P><<<nblk, kThreads, smem, st>>>(
+            h, w, b, labels, lse, ct, dw, db, dh_part, B, F, A, valid, g0, g1, g0 > 0);
+      }
+    } else if constexpr (P == 0) {
       const size_t smem = (bwd_layout(F).fixed + (size_t)(g1 - g0) * F) * sizeof(float);
       err = allow_smem((const void*)ce_bwd_kernel, smem, allowed);
       if (err != cudaSuccess) return err;
@@ -1209,13 +1618,11 @@ extern "C" long long fused_ce_fwd_scratch(int B, int F, int A, int precision) {
 }
 
 // Launches B1 on `stream`: lse and label logit (B) of h W + b masked at
-// columns >= valid. In "high" and "default" F may be at most
-// kWalkNarrowMaxF (256). Returns cudaGetLastError() (0 on success).
+// columns >= valid, at any F. Returns cudaGetLastError() (0 on success).
 extern "C" int fused_ce_fwd(const float* h, const float* w, const float* b,
                             const long long* labels, float* lse, float* g, float* scratch, int B,
                             int F, int A, int valid, int precision, void* stream) {
-  if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2 ||
-      (precision != 0 && F > mma_tile::kWalkNarrowMaxF))
+  if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = fwd_cols(F, precision);
@@ -1242,14 +1649,12 @@ extern "C" long long fused_ce_bwd_scratch(int B, int F, int A) {
 }
 
 // Launches B2 on `stream`: dW (F, A), db (A) and dh (B, F) of
-// sum_i ct[i] * CE_i. F may be at most kBwdMaxF (256). Returns
-// cudaGetLastError().
+// sum_i ct[i] * CE_i, at any F. Returns cudaGetLastError().
 extern "C" int fused_ce_bwd(const float* h, const float* w, const float* b,
                             const long long* labels, const float* lse, const float* ct, float* dw,
                             float* db, float* dh, float* scratch, int B, int F, int A, int valid,
                             int precision, void* stream) {
-  if (B < 1 || F < 1 || F > kBwdMaxF || A < 1 || valid < 0 || valid > A || precision < 0 ||
-      precision > 2)
+  if (B < 1 || F < 1 || A < 1 || valid < 0 || valid > A || precision < 0 || precision > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (precision == 0)

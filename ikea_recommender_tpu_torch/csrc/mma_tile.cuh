@@ -1,7 +1,9 @@
 // The tensor-core operand tile of B1, B2 (fused_ce.cu), B5 and B6
 // (fused_argmax.cu) in "high" and "default": bf16 planes in shared memory,
 // fed by ldmatrix to mma.sync.m16n8k16 with fp32 accumulators; and the head
-// walk that B1, B5 and B6 share (below).
+// walks that B1, B5 and B6 share (below): the head walk up to kWalkMaxF
+// (B1: kWalkNarrowMaxF) and, for B6, kMmaMaxHeads heads; past them the wide
+// head walk, which takes any F and any K.
 //
 // Each fp32 operand x is split once, as it is staged into shared memory,
 // into hi = bf16(x) and lo = bf16(x - hi) (P == 1, "high"; "default", P == 2,
@@ -439,6 +441,145 @@ __device__ __forceinline__ void head_walk(const float* __restrict__ h,
           Frag b;
           load_b<P>(b, wk, k0, COLS / 2 * wc + 16 * i);
           mma_pair<P>(acc[i], a, b);
+        }
+      }
+      epi(k, m0, acc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Planes staged through registers, and the wide head walk
+// ---------------------------------------------------------------------------
+
+// Loads in flight per thread while the planes are staged: each thread
+// loads kStageBatch elements (pairs in stage_rows) into registers before it
+// splits and stores any of them, since the compiler may not move a load
+// past a store to the planes.
+constexpr int kStageBatch = 4;
+
+// Rows 0..rp of the planes s, columns 0..cp (cp even), from the row-major
+// fp32 src of row stride ld: s[r][c] = src[r ld + c] for r < nr and c < nc,
+// else 0, so nothing outside reaches a product and nothing past nr rows or
+// nc columns is read. Plain loads (neighbouring threads read neighbouring
+// pairs), each pair split as it is stored.
+template <int P, int THREADS>
+__device__ __forceinline__ void stage_rows(const Planes& s, const float* __restrict__ src,
+                                           size_t ld, int nr, int nc, int rp, int cp) {
+  const int n = rp * cp / 2;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kStageBatch * THREADS) {
+    float x[kStageBatch][2];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * THREADS, r = e / (cp / 2), c = 2 * (e % (cp / 2));
+      const bool live = e < n && r < nr;
+      const float* p = src + (live ? (size_t)r * ld + c : 0);
+      x[u][0] = live && c < nc ? p[0] : 0.0f;
+      x[u][1] = live && c + 1 < nc ? p[1] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * THREADS, r = e / (cp / 2), c = 2 * (e % (cp / 2));
+      if (e < n) store_split2<P>(s, r * s.ld + c, x[u][0], x[u][1]);
+    }
+  }
+}
+
+// The same from src's transpose: s[r][c] = src[c ld + r] for r < nr and
+// c < nc, else 0 (neighbouring threads read neighbouring r): an
+// action-major W's rows into the (F, columns) planes.
+template <int P, int THREADS>
+__device__ __forceinline__ void stage_cols(const Planes& s, const float* __restrict__ src,
+                                           size_t ld, int nr, int nc, int rp, int cp) {
+  const int n = rp * cp;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kStageBatch * THREADS) {
+    float x[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * THREADS, r = e % rp, c = e / rp;
+      x[u] = e < n && r < nr && c < nc ? src[(size_t)c * ld + r] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * THREADS, r = e % rp, c = e / rp;
+      if (e < n) {
+        bf16 hi, lo;
+        split_bf16<P>(x[u], hi, lo);
+        s.hi[r * s.ld + c] = hi;
+        if constexpr (P == 1) s.lo[r * s.ld + c] = lo;
+      }
+    }
+  }
+}
+
+// The wide head walk: B1 past kWalkNarrowMaxF, B5 past kWalkMaxF and B6
+// past kWalkMaxF or past kMmaMaxHeads heads (fused_argmax.cu), where the
+// head walk's planes of all K heads at the full padded F do not fit. The
+// same block of kWalkThreads threads, the same COLS columns n0.. a block,
+// the same warps, fragments and epilogue calls epi(k, m0, acc), k = 0..K-1
+// per tile of kWalkRows rows of h. Shared memory holds one F-slice of
+// kWalkSlice rows of one head's columns and the same slice of the tile of
+// h, each split into its planes as it is staged through registers (columns
+// >= valid and rows past F or B as 0), so it does not grow with F or K.
+// Per tile and head the C fragments stay in registers while the slices go
+// by. W is staged again for every tile: the block re-reads its own columns
+// (F COLS floats a head), B / kWalkRows times, the reads after the first
+// from L2 while the block's columns are still there. The other order,
+// every tile's C held while W's slices go by, would hold B / kWalkRows
+// tiles' fragments (32 floats a thread each at 128 columns) in registers
+// that two blocks an SM leave at 128 a thread.
+__host__ __device__ inline size_t wide_walk_smem(int P, int cols) {
+  const size_t planes = P == 1 ? 2 : 1;
+  return 2 * planes * ((size_t)kWalkSlice * (cols + 8) + (size_t)kWalkRows * (kWalkSlice + 8));
+}
+
+template <int P, int COLS, class Epi, bool AM = false>
+__device__ __forceinline__ void head_walk_wide(const float* __restrict__ h,
+                                               const float* __restrict__ w, int B, int F, int A,
+                                               int K, int valid, unsigned char* smem, Epi& epi) {
+  static_assert(COLS == 128 || COLS == 64 || COLS == 32, "a warp takes 16, 32 or 64 columns");
+  constexpr bool LO = P == 1;
+  constexpr int NI = COLS / 32, LD = COLS + 8, HLD = kWalkSlice + 8;
+  unsigned char* p = smem;
+  auto planes = [&](size_t n, int ld) {
+    Planes s{reinterpret_cast<bf16*>(p), nullptr, ld};
+    p += 2 * n;
+    if (LO) {
+      s.lo = reinterpret_cast<bf16*>(p);
+      p += 2 * n;
+    }
+    return s;
+  };
+  const Planes ws = planes((size_t)kWalkSlice * LD, LD);   // a slice of a head's columns
+  const Planes hs = planes((size_t)kWalkRows * HLD, HLD);  // the same slice of the tile of h
+
+  const int warp = threadIdx.x / 32, wr = warp % 4, wc = warp / 4;
+  const int n0 = blockIdx.x * COLS;
+  const int ncols = valid - n0 < 0 ? 0 : (valid - n0 < COLS ? valid - n0 : COLS);
+  for (int m0 = 0; m0 < B; m0 += kWalkRows) {
+    const int nr = B - m0 < kWalkRows ? B - m0 : kWalkRows;
+    for (int k = 0; k < K; ++k) {
+      float acc[NI][2][4] = {};
+      for (int f0 = 0; f0 < F; f0 += kWalkSlice) {
+        const int sw = F - f0 < kWalkSlice ? F - f0 : kWalkSlice, swp = (sw + 15) / 16 * 16;
+        __syncthreads();  // the slice before it and the epilogue are done with shared memory
+        if constexpr (AM)  // head k's F floats of action a at w[a K F + k F ..]
+          stage_cols<P, kWalkThreads>(ws, w + ((size_t)n0 * K + k) * F + f0, (size_t)K * F, sw,
+                                      ncols, swp, COLS);
+        else
+          stage_rows<P, kWalkThreads>(ws, w + ((size_t)k * F + f0) * A + n0, A, sw, ncols, swp,
+                                      COLS);
+        stage_rows<P, kWalkThreads>(hs, h + (size_t)m0 * F + f0, F, nr, sw, kWalkRows, swp);
+        __syncthreads();
+        for (int k0 = 0; k0 < swp; k0 += 16) {
+          Frag a;
+          load_a<P>(a, hs, 16 * wr, k0);
+#pragma unroll
+          for (int i = 0; i < NI; ++i) {
+            Frag b;
+            load_b<P>(b, ws, k0, COLS / 2 * wc + 16 * i);
+            mma_pair<P>(acc[i], a, b);
+          }
         }
       }
       epi(k, m0, acc);

@@ -18,7 +18,9 @@ them) and break ties to the lowest action id, as ``jnp.argmax`` does; columns
 at or past ``valid_dim`` (a runtime int) are masked to -1e30 before any
 comparison, so they never win and NaN there never reaches the result. On
 CUDA tensors they launch ``csrc/fused_argmax.cu``, whose header says what
-bounds it and how it is laid out; on CPU tensors they run
+bounds it and how it is laid out; it takes any head width F and any head
+count K in every precision, as the reference's kernels do (past F = 128 or
+K = 5 on the wide head walk of ``csrc/mma_tile.cuh``); on CPU tensors they run
 :func:`fused_linear_argmax_plain` and :func:`fused_weighted_multihead_argmax_plain`,
 which form the dense masked logits with the same ``_dot`` as the fused CE's
 twins. There is no fallback from one to the other. ``precision`` is the
@@ -55,14 +57,6 @@ LAUNCHES = 0  # B5, fused_linear_argmax
 WEIGHTED_LAUNCHES = 0  # B6, fused_weighted_multihead_argmax
 AM_LAUNCHES = 0  # B5 on an action-major W
 WEIGHTED_AM_LAUNCHES = 0  # B6 on an action-major W
-
-# B5 and B6 in "high" and "default" keep W's columns and a tile of h in
-# shared memory as bf16 planes (the head walk of csrc/mma_tile.cuh, which
-# B1 shares at 64 columns a block past F = 128); they take F up to this, and
-# B6 K heads up to MAX_MMA_HEADS (the reference's "K is tiny (<=5)"). No
-# repo config runs sqn or smorl with hidden above 128 (ROADMAP B.3).
-MAX_MMA_FEATURES = 128
-MAX_MMA_HEADS = 5
 
 _FNS = None
 
@@ -181,11 +175,6 @@ def _launch(h, w, b, q_weights, valid_dim, precision, action_major):
             raise ValueError("fused argmax takes contiguous inputs on CUDA")
     (B, F), A = h.shape, w.shape[0] if action_major else w.shape[-1]
     K = 1 if q_weights is None else q_weights.shape[0]
-    if precision != "highest" and (F > MAX_MMA_FEATURES or K > MAX_MMA_HEADS):
-        raise ValueError(
-            f"the fused_argmax tensor-core kernel takes F <= {MAX_MMA_FEATURES} and "
-            f"K <= {MAX_MMA_HEADS} in {precision!r}, got F={F}, K={K}"
-        )
     fn, scratch = _kernel_fns()
     dev = h.device
     idx = torch.empty((B,), dtype=torch.int64, device=dev)

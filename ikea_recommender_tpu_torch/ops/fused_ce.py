@@ -10,7 +10,9 @@ and the backward recomputes the logits to form ``dlogits`` and the three
 gradients.
 
 On CUDA tensors the forward and backward launch ``csrc/fused_ce.cu``, whose
-header says what bounds each and how it is laid out. On CPU tensors they run
+header says what bounds each and how it is laid out; both take any head
+width F in every precision, as the reference's kernels do (past F = 256 on
+routes that go over F in slices). On CPU tensors they run
 :func:`fused_ce_fwd_plain` and :func:`fused_ce_bwd_plain`, which compute
 the same functions with dense torch products. There is no fallback from one
 to the other.
@@ -42,13 +44,6 @@ PRECISIONS = ("highest", "high", "default")
 # Launches of each CUDA kernel, counted where it is launched and nowhere else.
 LAUNCHES = 0  # B1, the forward
 BWD_LAUNCHES = 0  # B2, the backward
-
-# F the kernels take: B2 in every precision keeps a tile's (rows, F) dh part
-# and h's rows at all of F in shared memory, and B1 in "high" and "default"
-# W's columns and a tile of h as bf16 planes. 256 = 2 H of bidir_gru4rec at
-# hidden 128, the widest head of the repo's configs; past it they raise
-# (ROADMAP B.3). B1 in "highest" takes any F.
-MAX_FEATURES = 256
 
 _FNS = None
 
@@ -178,11 +173,6 @@ def _launch_fwd(h, w, b, labels, valid_dim, precision):
     global LAUNCHES
     labels = _cuda_inputs(h, w, b, labels)
     (B, F), A = h.shape, w.shape[1]
-    if precision != "highest" and F > MAX_FEATURES:
-        raise ValueError(
-            f"the fused_ce forward tensor-core kernel takes F <= {MAX_FEATURES} in "
-            f"{precision!r}, got F={F} (ROADMAP B.3)"
-        )
     fwd, _, fwd_scratch, _ = _kernel_fns()
     dev = h.device
     lse = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -207,10 +197,6 @@ def _launch_bwd(h, w, b, labels, lse, ct, valid_dim, precision):
     global BWD_LAUNCHES
     labels = _cuda_inputs(h, w, b, labels)
     (B, F), A = h.shape, w.shape[1]
-    if F > MAX_FEATURES:
-        raise ValueError(
-            f"the fused_ce backward kernel takes F <= {MAX_FEATURES}, got F={F} (ROADMAP B.3)"
-        )
     _, bwd, _, bwd_scratch = _kernel_fns()
     dev = h.device
     dh = torch.empty((B, F), dtype=torch.float32, device=dev)

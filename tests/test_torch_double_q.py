@@ -192,13 +192,19 @@ CASES = {  # (train config, RL config, smorl inputs with the out_to_in table)
     "smorl-k1": (dict(model="smorl", num_q_heads=1), {}, False),  # no top-k: B1
     "smorl-unfused": (dict(model="smorl", fused_ce=False), dict(topk_nov=3), False),
     "smorl-div-len-bug": (dict(model="smorl"), dict(compat_div_len_bug=True), False),
+    # hidden 136: the head width F = 136 > 128, B5 and B6 on their wide
+    # routes on the card (B2 too past 256 in the bidir step cases)
+    "sqn-wide": (dict(model="sqn", hidden_state_size=136), {}, None),
+    "smorl-wide": (dict(model="smorl", hidden_state_size=136), dict(q_weights=(1.0, 0.5, 2.0)),
+                   False),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_three_steps_match_reference(case):
     train_kw, rl, remap = CASES[case]
-    mc, jmc = model_configs(A, embedding_size=E, hidden_state_size=E, state_size=T, **train_kw)
+    mc, jmc = model_configs(A, **{"embedding_size": E, "hidden_state_size": E, "state_size": T,
+                                  **train_kw})
     assert mc.fused_ce == jmc.fused_ce == train_kw.get("fused_ce", True)
     np_pair = numpy_init_double_q(mc, seeds=(1, 2))
     batches = _batches(3, seed=3)

@@ -691,48 +691,98 @@ def test_fused_argmax_action_major_exact_ties(cuda_device, K, precision):
     assert (idx == 127).all()
 
 
-def _launch_counts():
-    return (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES, fused_argmax.LAUNCHES,
-            fused_argmax.WEIGHTED_LAUNCHES, fused_argmax.AM_LAUNCHES,
-            fused_argmax.WEIGHTED_AM_LAUNCHES)
+WIDE_CE_SHAPES = [  # (B, F, A, valid): past F = 256, where B1 and B2 go over F in slices
+    (70, 257, 1000, 950),  # one slice of 1 past two whole ones
+    (300, 384, 4099, 4001),  # two launches of B2's rows (256 a launch), A % 4 != 0
+    (5, 1000, 300, 300),
+    (33, 2048, 700, 650),  # bidir_gru4rec's widest head (H = 1024)
+]
+WIDE_ARGMAX_SHAPES = [  # (B, F, A, valid, K or None): past F = 128 or K = 5
+    (70, 129, 1000, 950, None),
+    (300, 257, 4099, 4001, None),
+    (37, 520, 700, 650, 3),
+    (64, 64, 1000, 999, 6),  # K past 5 at a narrow F
+    (5, 200, 300, 300, 8),
+    (33, 2048, 500, 480, 5),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["high", "default"])
-def test_tensor_core_kernels_refuse_features_past_their_limit(cuda_device, precision):
-    """B1, B2, B5 and B6 on the tensor cores hold W's columns and rows of h
-    in shared memory: B1 and B2 past F = 256 (B2 in every precision), B5
-    and B6 past F = 128, and B6 past K = 5 heads, raise instead of
-    launching; in "highest" (the CUDA-core tile) B1, B5 and B6 still take
-    those shapes."""
-    B, A, valid = 4, 300, 300
-    h2, w2, b2, labels2, ct2 = _ce_inputs(B, 257, A, valid, False, cuda_device)
-    h, w, b, labels, ct = _ce_inputs(B, 129, A, valid, False, cuda_device)
-    heads = _argmax_inputs(B, 129, A, valid, 3, False, cuda_device)
-    six = _argmax_inputs(B, 64, A, valid, 6, False, cuda_device)
-    lse2, _ = fused_ce_fwd_plain(h2, w2, b2, labels2, valid, precision)
-    before = _launch_counts()
-    with pytest.raises(ValueError, match="F <= 256"):
-        fused_ce_fwd(h2, w2, b2, labels2, valid, precision)
-    for p in (precision, "highest"):
-        with pytest.raises(ValueError, match="F <= 256"):
-            fused_ce_bwd(h2, w2, b2, labels2, lse2, ct2, valid, p)
-    with pytest.raises(ValueError, match="F <= 128"):
-        _run_argmax(h, w, b, None, valid, precision)
-    with pytest.raises(ValueError, match="F <= 128"):
-        _run_argmax(*heads, valid, precision)
-    with pytest.raises(ValueError, match="K <= 5"):
-        _run_argmax(*six, valid, precision)
-    assert _launch_counts() == before
-    got = fused_ce_fwd(h2, w2, b2, labels2, valid, "highest")
-    for a, c, name in zip(got, fused_ce_fwd_plain(h2, w2, b2, labels2, valid, "highest"),
-                          ("lse", "label logit")):
-        _assert_close(a, c, name)
-    for args in ((h, w, b, None), heads, six):
-        idx, _ = _run_argmax(*args, valid, "highest")
-        want, mx, gap = _twin_argmax(*args, valid, "highest")
-        torch.cuda.synchronize()
-        assert ((idx == want) | (gap <= 1e-5 * mx.abs().max())).all()
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("B,F,A,valid", WIDE_CE_SHAPES)
+def test_fused_ce_wide_matches_twin(cuda_device, B, F, A, valid, precision):
+    """B1 and B2 past F = 256 (the wide head walk and B2's wide kernels) in
+    every precision, NaN in the masked columns: held to the twins as
+    test_fused_ce_matches_twin holds them, launched and counted, bit for
+    bit over two launches."""
+    h, w, b, labels, ct = _ce_inputs(B, F, A, valid, True, cuda_device, seed=F)
+    lse_p, lbl_p = fused_ce_fwd_plain(h, w, b, labels, valid, precision)
+    dh_p, dw_p, db_p = fused_ce_bwd_plain(h, w, b, labels, lse_p, ct, valid, precision)
+    before = (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES)
+    got = [fused_ce_fwd(h, w, b, labels, valid, precision) for _ in range(2)]
+    grads = [fused_ce_bwd(h, w, b, labels, lse_p, ct, valid, precision) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fused_ce.LAUNCHES, fused_ce.BWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    for first, second in ((got[0], got[1]), (grads[0], grads[1])):
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+    (lse, lbl), (dh, dw, db) = got[0], grads[0]
+    for a, want, name in ((lse, lse_p, "lse"), (lbl, lbl_p, "label logit"),
+                          (dh, dh_p, "dh"), (dw, dw_p, "dw"), (db, db_p, "db")):
+        assert torch.isfinite(a).all(), name
+        _assert_close(a, want, name)
+    off = _off_label(labels, A, valid)
+    tol = 2.0**-8 if precision == "default" else 1e-5  # as DW_OFF_LABEL_TOL
+    _assert_close(dw[:, off], dw_p[:, off], "dw off-label", tol=tol)
+    _assert_close(db[off], db_p[off], "db off-label")
+    assert (dw[:, valid:] == 0).all() and (db[valid:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("action_major", [False, True])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("B,F,A,valid,K", WIDE_ARGMAX_SHAPES)
+def test_fused_argmax_wide_matches_twin(cuda_device, B, F, A, valid, K, precision,
+                                        action_major):
+    """B5 and B6 past F = 128 or K = 5 (the wide head walk in "high" and
+    "default"), on both layouts of W: held to the twin as
+    test_fused_argmax_matches_twin holds them, counted under the layout's
+    counter, bit for bit over two launches; on small integers with columns
+    127, 128 (a block edge) and valid - 1 made each row's largest, the
+    lowest, 127, wins."""
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, True, cuda_device, seed=F)
+    w_run = _action_major(w, K) if action_major else w
+    kw = dict(with_max=True, action_major=action_major)
+
+    def run(w_run, b):
+        if q is None:
+            return fused_argmax.fused_linear_argmax(h, w_run, b, valid, precision, **kw)
+        return fused_argmax.fused_weighted_multihead_argmax(h, w_run, b, q, valid, precision,
+                                                            **kw)
+
+    counter = ("WEIGHTED_" if K else "") + ("AM_LAUNCHES" if action_major else "LAUNCHES")
+    before = getattr(fused_argmax, counter)
+    idx, mx = run(w_run, b)
+    again = run(w_run, b)
+    torch.cuda.synchronize()
+    assert getattr(fused_argmax, counter) == before + 2
+    assert torch.equal(idx, again[0]) and torch.equal(mx, again[1])
+    v = fused_argmax.head_values_plain(h, w_run, b, valid, precision, q, action_major)
+    top2 = v.topk(2, dim=1).values
+    scale = v.amax(dim=1).abs().max().item()
+    assert torch.isfinite(mx).all() and (idx < valid).all()
+    assert (mx - v.amax(dim=1)).abs().max().item() <= 1e-5 * scale
+    clear = top2[:, 0] - top2[:, 1] > 1e-5 * scale
+    assert (~clear).sum().item() <= max(2, B // 50)
+    assert torch.equal(idx[clear], v.argmax(dim=1)[clear])
+
+    h, w, b, q = _argmax_inputs(B, F, A, valid, K, True, cuda_device, integer=True, seed=F)
+    for col in (128, valid - 1):
+        w[..., col] = w[..., 127]
+        b[..., col] = b[..., 127]
+    b[..., 127] = b[..., 128] = b[..., valid - 1] = 1000.0
+    idx, _ = run(_action_major(w, K) if action_major else w, b)
+    torch.cuda.synchronize()
+    assert (idx == 127).all()
 
 
 @pytest.mark.cuda

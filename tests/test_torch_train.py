@@ -155,6 +155,8 @@ CASES = {
     "bidir-2layers": dict(model="bidir_gru4rec", fused_ce=True, gru_layers=2, dropout=0.0),
     # hidden 128: the head input is F = 2 H = 256, the BidirGRU-128 width
     "bidir-h128": dict(model="bidir_gru4rec", fused_ce=True, hidden_state_size=128, dropout=0.0),
+    # hidden 136: F = 272 > 256, B1 and B2 on their wide routes on the card
+    "bidir-wide": dict(model="bidir_gru4rec", fused_ce=True, hidden_state_size=136, dropout=0.0),
     "gru4rec-bf16-moments": dict(model="gru4rec", fused_ce=True, mv_dtype="bfloat16"),
     "gru4rec-highest": dict(model="gru4rec", fused_ce=True, head_precision="highest"),
 }
